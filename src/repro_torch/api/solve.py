@@ -1,0 +1,97 @@
+"""`solve(problem, spec)` — the one entry point to Algorithm 2.
+
+Port of `repro/api/solve.py` for the single-cell and fleet topologies:
+
+    single cell        -> BCD (`BCDResult`)
+    (C, N) stack       -> the same BCD on every cell at once (`FleetResult`)
+
+The solve runs on the device the system's tensors live on. The other
+topologies of `repro.solve` raise NotImplementedError naming the ROADMAP
+item that ports them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.accuracy import default_accuracy
+from ..core.bcd import (_LEDGER_COLS, BCDResult, SolveCounters,
+                        _allocate_impl, _fleet_result, _init_carry_state,
+                        _materialize_history, initial_allocation)
+from ..core.types import Allocation, SystemParams
+from .problem import Problem, weights_leaf
+from .spec import SolverSpec, warn_tol_floor
+
+# Problem fields of topologies not ported yet -> the ROADMAP item porting them
+_LATER = {
+    "deadline": "Queue 1 item 4 (the deadline-constrained BCD)",
+    "rounds": "Queue 1 item 6 (round dynamics)",
+    "mesh": "Queue 1 item 9 (the serving pipeline and its mesh)",
+    "assoc": "Queue 1 item 10 (association)",
+}
+
+
+def _apply_dtype(system: SystemParams, init: Optional[Allocation],
+                 dtype: Optional[str]):
+    if dtype is None:
+        return system, init
+    dt = getattr(torch, dtype)
+    return (system.to(dtype=dt),
+            None if init is None else init.to(dtype=dt))
+
+
+def solve(problem: Problem, spec: Optional[SolverSpec] = None):
+    """Solve one `Problem` under one `SolverSpec`; route on topology.
+
+    Returns a `BCDResult` for a single cell and a `FleetResult` for a
+    (C, N) stack, with the same fields, iteration counts, ledger columns
+    and counters as `repro.solve`.
+    """
+    spec = SolverSpec() if spec is None else spec
+    for field, item in _LATER.items():
+        if getattr(problem, field) is not None:
+            raise NotImplementedError(
+                f"repro_torch.solve: Problem.{field} is not ported yet; see "
+                f"ROADMAP.md {item}")
+    if spec.lockstep:
+        raise ValueError("solve: SolverSpec.lockstep requires Problem.mesh")
+    if spec.sp1_method != "sweep" or spec.sp2_method != "direct":
+        raise NotImplementedError(
+            f"repro_torch.solve: sp1_method={spec.sp1_method!r} / "
+            f"sp2_method={spec.sp2_method!r} are not ported yet; see "
+            f"ROADMAP.md Queue 1")
+    cells = problem.cells   # also validates system.gain is 1-D or 2-D
+    sysp, init = _apply_dtype(problem.system, problem.init, spec.dtype)
+    warn_tol_floor(spec.tol, sysp.dtype)
+    acc = problem.acc if problem.acc is not None else default_accuracy()
+    alloc0 = init if init is not None else initial_allocation(sysp)
+    batch = sysp.batched()
+    state0 = _init_carry_state(batch, alloc0)
+    warr = weights_leaf(problem.weights, sysp.dtype, sysp.device,
+                        cells=1 if cells is None else cells)
+    out = _allocate_impl(batch, warr, acc, state0, spec.max_iters, spec.tol)
+    if cells is None:
+        return _bcd_result(out, alloc0, spec)
+    return _fleet_result(out, spec.max_iters)
+
+
+def _bcd_result(out, alloc0: Allocation, spec: SolverSpec) -> BCDResult:
+    """Single-cell result: the ledger materialized (or, with
+    keep_history=False, only the objective), and the untouched init when
+    max_iters=0 ran nothing (objective NaN)."""
+    B, pw, f, s, s_hat, T, iters, conv, ledger, counters = out
+    iters = int(iters[0])
+    if spec.keep_history:
+        history = _materialize_history(ledger[0].cpu().numpy(), iters,
+                                       _LEDGER_COLS)
+        objective = history[-1]["objective"] if history else float("nan")
+    else:
+        history = []
+        objective = float(ledger[0, iters - 1, 0]) if iters else float("nan")
+    allocation = Allocation(bandwidth=B[0], power=pw[0], freq=f[0],
+                            resolution=s[0], s_relaxed=s_hat[0],
+                            T=T[0, 0]) if iters else alloc0
+    return BCDResult(allocation=allocation, objective=objective,
+                     history=history, iters=iters, converged=bool(conv[0]),
+                     counters=SolveCounters(data=counters[0]))

@@ -1,0 +1,62 @@
+"""Package rules of the port: it imports neither JAX nor `repro`, and its
+entry points build on CUDA unless the caller asks for the CPU."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch as rt
+from repro_torch import interop
+from repro_torch.core.types import SYS_ARRAYS, SYS_SCALARS
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = ("import sys, repro_torch, repro_torch.interop, "
+            "repro_torch.kernels.ops, repro_torch.kernels.build; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def leaves(n=8):
+    d = {k: np.ones(n) for k in SYS_ARRAYS}
+    d.update({k: np.float64(1.0) for k in SYS_SCALARS})
+    return d
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rt.make_system(0, n_devices=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rt.make_fleet(0, 2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.system_from_numpy(leaves(), (160.0, 640.0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.allocation_from_numpy(
+            {k: np.ones(8) for k in ("bandwidth", "power", "freq",
+                                     "resolution")})
+    assert rt.make_system(0, n_devices=8, device="cpu").device.type == "cpu"
+    s = interop.system_from_numpy(leaves(), (160.0, 640.0), device="cpu")
+    assert s.device.type == "cpu" and s.p_max.shape == ()
+
+
+def test_interop_reshapes_stacked_scalars():
+    d = {k: np.ones((3, 8)) for k in SYS_ARRAYS}
+    d.update({k: np.arange(3.0) + 1 for k in SYS_SCALARS})
+    d["active"] = np.ones((3, 8), bool)
+    s = interop.system_from_numpy(d, (160.0, 640.0), device="cpu",
+                                  dtype=torch.float32)
+    assert s.cells == 3 and s.p_max.shape == (3, 1)
+    assert s.gain.dtype == s.p_max.dtype == torch.float32
+    assert s.active.dtype == torch.bool
