@@ -6,25 +6,40 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
-(nvcc, into build/repro_torch/), then:
+(one nvcc per source, started together, into build/repro_torch/), then:
 
   1. prints the card, its power limit, the torch/CUDA versions and the
      build times (and ptxas's register/spill report);
   2. holds each kernel against its plain PyTorch version on the card, at
-     the main path's shapes and at ragged ones, in float32 and float64,
-     and checks that two launches on the same inputs agree bitwise;
-  3. drives the main path through `repro_torch.solve` at full width — the
-     C=64 x N=2048 float32 fleet, max_iters=8, weights (0.5, 0.5, 1.0),
-     bandwidth 20 MHz per 50 devices — and the paper's single cell (N=50)
-     in float64, with every kernel's launch count set to 0 just before and
-     read just after; checks that every output is finite and feasible and
-     that the kernel ran 3 times per batched BCD iteration;
-  4. solves the paper cell and 4 cells of that fleet in float64 on the
-     card and on the CPU (where the plain versions run) and compares them;
-  5. times the warm fleet solve (median of 3) and each kernel per launch
-     (CUDA events) beside its bound and its plain version;
-  6. traces one fleet solve with torch.profiler: the card's busy time and
-     idle share, and the kernels that take the most time.
+     the main paths' shapes and at ragged and edge-case ones, in float32
+     and float64, checks that two launches on the same inputs agree
+     bitwise and that kernel and plain sums pick the same bracket;
+  3. drives the main paths through the port's entry points at full width,
+     each with every kernel's launch count set to 0 just before and read
+     just after:
+       - Algorithm 2 through `repro_torch.solve`: the C=64 x N=2048
+         float32 fleet, max_iters=8, weights (0.5, 0.5, 1.0), bandwidth
+         20 MHz per 50 devices, and the paper's single cell (N=50) in
+         float64; the SP1 kernel runs 3 times per batched BCD iteration;
+       - the paper-literal SP2 (`core.sp2.solve_sp2_v2_thm2`, beside
+         `solve_sp2_direct`) on one 2^17-device region in float32: 4
+         `waterfill_gprime` launches per call and no host read;
+       - the deadline-constrained fleet (C=64 x N=2048, float32), each
+         cell's deadline 1.2 x its free-deadline total time;
+     and checks that every output is finite and feasible;
+  4. solves on the card and on the CPU (where the plain versions run) in
+     float64 and compares them: the paper cell and 4 fleet cells (the
+     default engines), an N=4096 slice of the region (Theorem 2 and
+     direct), the Fig. 8 cell under three deadlines, the paper cell with
+     SP1 "bisect", with SP2 "jong" (cut to 3 BCD x 5 Algorithm-1
+     iterations) and with the log accuracy model, and 4 fleet cells under
+     per-cell deadlines;
+  5. times the warm fleet and deadline-fleet solves (median of 3) and each
+     kernel per launch (CUDA events) beside its bound and its plain
+     version;
+  6. traces one fleet solve and one deadline-fleet solve with
+     torch.profiler: the card's busy time and idle share, and the kernels
+     that take the most time.
 
 Each phase prints a JSON record. The line before the last lists the
 kernels; the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -47,6 +62,22 @@ ROOT = Path(__file__).resolve().parent
 FLEET_C, FLEET_N, FLEET_ITERS, FLEET_SEED = 64, 2048, 8, 31
 PAPER_N, PAPER_SEED = 50, 0
 WEIGHTS = (0.5, 0.5, 1.0)
+# The Theorem-2 region: examples/allocate_fleet.py section 3 (2^17 devices,
+# 20 MHz per 50, f = 1 GHz, s = 320, T = 1.2 max t_cmp), compared with the
+# CPU on its first REGION_SLICE devices.
+REGION_N, REGION_SEED, REGION_SLICE = 1 << 17, 17, 4096
+N_MU = 128   # candidates per Theorem-2 sweep (core/sp2.py::_thm2_dual_mu)
+# The deadline variant: Fig. 8 of benchmarks/run.py (N = 12, p_max = 10 dBm,
+# energy-heavy weights, max_iters = 6), and the full-width deadline fleet
+# with each cell's deadline DEADLINE_SLACK x its free-deadline total time.
+FIG8_N, FIG8_SEED, FIG8_PMAX_DBM = 12, 7, 10.0
+FIG8_WEIGHTS, FIG8_DEADLINES, FIG8_ITERS = (0.99, 0.01, 1.0), (80.0, 120.0,
+                                                             200.0), 6
+DEADLINE_SLACK = 1.2
+# Algorithm 1 runs ~100k small launches per SP2_v2 solve; the paper cell's
+# "jong" comparison is cut to 3 BCD x 5 Algorithm-1 iterations (the
+# reference's defaults are 20 x 30) to stay inside the run's time limit.
+JONG_SPEC = dict(max_iters=3, sp2_method="jong", sp2_iters=5)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): HBM3
 # bandwidth, and the FP32 / FP64 rates outside the tensor cores.
@@ -61,8 +92,25 @@ PEAK_OPS_S = {"float32": 67e12, "float64": 34e12}
 # near-tie pick, 6 for the unattainable-deadline test, and 1 for the sum.
 SP1_OPS_PER_PAIR = 6 + 24 + 12 + 11 + 138 + 19 + 6 + 1
 
+# Floating-point operations of one (m, n) pair of waterfill_gprime, counted
+# the same way (exp, log, sqrt and division as one each): the ratio
+# q = mu/j (1); the seed (37: clamp 1, z 2, p 2, the 4-term series 13, the
+# two logs with their clamps 4, w_big 4, w_small 5, the branch selects 4,
+# the clamp at -1 + eps 2); 24 Halley steps of 17 (exp 1, f 2, w + 1 1,
+# the denominator 6, its tiny guard 3, the step 2, the clamp 2); the
+# q < 1e-3 cut-over (2); the summand and the sum (5).
+WATERFILL_OPS_PER_PAIR = 1 + 37 + 24 * 17 + 2 + 5
+
 TOL_F64 = 1e-10   # relative (a zero sum must come out exactly zero)
 TOL_F32 = 1e-4    # relative to max(|sum|, 1e-6 * lam_hi * N)
+# waterfill_gprime, relative to max(|g + B_total|, Sigma rmin ln2): every
+# term is positive, so g + B_total is the sum's own scale, and Sigma rmin
+# ln2 (its value at W + 1 = 1) floors it where W + 1 is large. float32 sums
+# up to 2^17 terms in two different orders, and near the branch point a
+# term's W + 1 ~ sqrt(2q) comes out of -1 + p(...) with ~6e-8 / sqrt(2q) of
+# relative rounding, which the kernel's fused multiply-adds and the plain
+# version's separate operations round differently.
+WF_TOL_F64, WF_TOL_F32 = 1e-10, 1e-4
 
 
 class SmokeError(RuntimeError):
@@ -107,10 +155,14 @@ def main():
            cuda=torch.version.cuda, python=sys.version.split()[0],
            build_s=build_s, built=built, ptxas=ptxas)
 
-    kernels = [phase_sp1_kernel(torch)]
+    kernels = [phase_sp1_kernel(torch), phase_waterfill_kernel(torch)]
     fleet_run = phase_main_path(torch)
     kernels[0]["launches"] = fleet_run["launches"]["sp1_lambda_sum"]
+    region_run = phase_region_sp2(torch)
+    kernels[1]["launches"] = region_run["launches"]["waterfill_gprime"]
+    phase_deadline_fleet(torch)
     phase_card_vs_cpu(torch)
+    phase_paper_paths(torch)
     phase_times(torch, kernels)
     phase_profile(torch)
 
@@ -251,6 +303,145 @@ def phase_sp1_kernel(torch):
                 launches=None, max_abs_err=main_abs_err)
 
 
+def thm2_instance(torch, sysp):
+    """SP2 inputs of a system at the equal split at p_max, as the tests
+    build them: rmin from f = 1 GHz, s = 320 and a deadline of 1.2 x each
+    cell's slowest compute time, and the duals (nu, beta) of weights
+    (0.5, 0.5, 1.0). Tensors are shaped like the system's."""
+    from repro_torch.core.energy import t_cmp
+    from repro_torch.core.sp2 import G, r_min
+    from repro_torch.core.types import Weights
+
+    shape, dev, dt = sysp.gain.shape, sysp.device, sysp.dtype
+    f = torch.full(shape, 1e9, dtype=dt, device=dev)
+    s = torch.full(shape, 320.0, dtype=dt, device=dev)
+    T = t_cmp(sysp, f, s).amax(-1, keepdim=True) * 1.2
+    rmin = r_min(sysp, f, s, T)
+    B0 = torch.broadcast_to(sysp.bandwidth_total / shape[-1], shape)
+    p0 = torch.broadcast_to(sysp.p_max, shape)
+    rate0 = G(sysp, p0, B0)
+    w1 = Weights(*WEIGHTS).normalized().w1
+    return rmin, w1 * sysp.global_rounds / rate0, p0 * sysp.bits / rate0
+
+
+def region_system(torch, dtype, keep=None, device="cuda"):
+    """The section-3 region of examples/allocate_fleet.py (2^17 devices,
+    20 MHz per 50); with `keep`, the first `keep` devices of the same draw
+    with the bandwidth scaled to 20 MHz per 50 of them."""
+    from repro_torch import make_system
+    from repro_torch.core.types import SYS_ARRAYS
+
+    sysp = make_system(REGION_SEED, n_devices=REGION_N, device="cpu",
+                       dtype=torch.float64,
+                       bandwidth_total=20e6 * REGION_N / 50)
+    if keep is not None:
+        sysp = sysp.replace(
+            **{k: getattr(sysp, k)[:keep] for k in SYS_ARRAYS},
+            bandwidth_total=torch.tensor(20e6 * keep / 50,
+                                         dtype=torch.float64))
+    return sysp.to(device=device, dtype=dtype)
+
+
+def thm2_sweep_inputs(torch, sysp, nu, rmin, grid=None):
+    """The Theorem-2 dual search's first `waterfill_gprime` launch for
+    (sysp, nu, rmin), as `core/sp2.py::_thm2_dual_mu` makes it:
+    (mu (C, 128), j (C, N), rmin (C, N), B_total (C,)). `grid(j)` replaces
+    the multiplier grid."""
+    from repro_torch.core.sp1 import _cells_view, _geomspace
+    from repro_torch.core.sp2 import _clamp_rmin, _thm2_bracket, _thm2_j
+
+    b, (nu, rmin) = _cells_view(sysp, nu, rmin)
+    rmin = _clamp_rmin(b, rmin)
+    j = _thm2_j(b, nu)
+    mu = _geomspace(*_thm2_bracket(b, j, rmin), N_MU) if grid is None \
+        else grid(j)
+    return (mu.contiguous(), j.contiguous(), rmin.contiguous(),
+            b.bandwidth_total.reshape(-1).contiguous())
+
+
+def waterfill_cases(torch, dtype):
+    """(name, on the main path, kernel inputs) for every case the kernel is
+    held to in `dtype`."""
+    from repro_torch import make_system
+    from repro_torch.core.sp1 import _geomspace
+
+    cases = []
+    region = region_system(torch, dtype)
+    rmin, nu, _ = thm2_instance(torch, region)
+    cases.append(("region", True, thm2_sweep_inputs(torch, region, nu, rmin)))
+    for c, n in ((FLEET_C, FLEET_N), (4, 7), (4, 1000), (4, 1500)):
+        fleet = fleet_system(torch, dtype, c, n)
+        rmin, nu, _ = thm2_instance(torch, fleet)
+        cases.append((f"fleet.C{c}.N{n}", False,
+                      thm2_sweep_inputs(torch, fleet, nu, rmin)))
+    # mu << j: q = mu/j from 1e-6 up to past the series cut-over at 1e-3
+    fleet = fleet_system(torch, dtype, 2, 1000)
+    rmin, nu, _ = thm2_instance(torch, fleet)
+    cases.append(("branch_point", False, thm2_sweep_inputs(
+        torch, fleet, nu, rmin,
+        grid=lambda j: _geomspace(1e-6 * j.amin(-1, keepdim=True),
+                                  1e-2 * j.amax(-1, keepdim=True), N_MU))))
+    # tests/test_fleet.py's tight deadline: ~100 nats, root near 1e33 in
+    # float64 (the bracket runs up to the dtype's cap)
+    cell = make_system(PAPER_SEED, n_devices=PAPER_N, device="cuda",
+                       dtype=dtype)
+    _, nu, _ = thm2_instance(torch, cell)
+    rmin = torch.full_like(nu, 100.0 * float(cell.bandwidth_total)
+                           / (PAPER_N * math.log(2.0)))
+    cases.append(("tight_deadline", False,
+                  thm2_sweep_inputs(torch, cell, nu, rmin)))
+    return cases
+
+
+def phase_waterfill_kernel(torch):
+    """waterfill_gprime against its plain version on the card."""
+    from repro_torch.kernels import waterfill
+
+    main_abs_err = 0.0
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        tol = WF_TOL_F32 if dtype == torch.float32 else WF_TOL_F64
+        for name, on_main_path, args in waterfill_cases(torch, dtype):
+            mu, j, rmin, b_total = args
+            out = waterfill.waterfill_gprime(*args)
+            again = waterfill.waterfill_gprime(*args)
+            plain = waterfill.waterfill_gprime_ref(*args)
+            torch.cuda.synchronize()
+            where = f"{name}, C={j.shape[0]}, N={j.shape[1]}, {dtype}"
+            check(bool(torch.isfinite(out).all()),
+                  f"waterfill_gprime: non-finite sums ({where})")
+            check(torch.equal(out, again),
+                  f"waterfill_gprime: two launches differ ({where})")
+            scale = torch.maximum((plain + b_total[:, None]).abs(),
+                                  rmin.sum(-1, keepdim=True) * math.log(2.0))
+            err = (out - plain).abs()
+            rel = float((err / scale).max())
+            abs_err = float(err.max())
+            same_sign = torch.equal(out < 0, plain < 0)
+            same_bracket = torch.equal(bracket_index(torch, out, 0.0),
+                                       bracket_index(torch, plain, 0.0))
+            if on_main_path:
+                main_abs_err = max(main_abs_err, abs_err)
+            rows.append(dict(case=name, dtype=str(dtype).removeprefix(
+                "torch."), C=j.shape[0], M=mu.shape[1], N=j.shape[1],
+                mu_max=float(mu.max()), max_rel_err=rel, max_abs_err=abs_err,
+                tol=tol, same_sign=same_sign, same_bracket=same_bracket))
+            check(rel <= tol, f"waterfill_gprime: kernel vs plain rel err "
+                              f"{rel:.3g} > {tol:g} ({where})")
+            check(same_sign and same_bracket,
+                  f"waterfill_gprime: kernel and plain sums differ in sign "
+                  f"or bracket ({where})")
+    record("kernel_vs_plain", kernel="waterfill_gprime", cases=rows)
+    tight = [r for r in rows if r["case"] == "tight_deadline"
+             and r["dtype"] == "float64"]
+    check(tight[0]["mu_max"] > 1e30,
+          "waterfill_gprime: the tight-deadline grid does not reach 1e30")
+    return dict(name="waterfill_gprime", route="cuda",
+                source="src/repro_torch/kernels/csrc/waterfill.cu",
+                replaces="src/repro/kernels/waterfill.py:77",
+                launches=None, max_abs_err=main_abs_err)
+
+
 def feasible_cells(torch, sysp, alloc):
     """Per-cell feasibility of a (C, N) allocation, sums in float64."""
     b = sysp.batched()
@@ -274,22 +465,32 @@ def feasible_cells(torch, sysp, alloc):
     return checks
 
 
-def counted_solve(torch, problem, spec):
-    """solve() with every kernel count and the host-read count set to 0
-    just before and read just after."""
-    from repro_torch import solve
+def counted(torch, fn):
+    """fn() with every kernel's launch count and the host-read count set to
+    0 just before and read just after. Returns (result, {kernel: launches},
+    host reads, wall seconds)."""
     from repro_torch.core.loops import while_cells
-    from repro_torch.kernels import sp1_sweep
+    from repro_torch.kernels import sp1_sweep, waterfill
 
-    sp1_sweep.sp1_lambda_sum.launches = 0
+    kernels = {"sp1_lambda_sum": sp1_sweep.sp1_lambda_sum,
+               "waterfill_gprime": waterfill.waterfill_gprime}
+    for k in kernels.values():
+        k.launches = 0
     while_cells.host_reads = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = solve(problem, spec)
+    res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"sp1_lambda_sum": sp1_sweep.sp1_lambda_sum.launches}
+    counts = {name: k.launches for name, k in kernels.items()}
     return res, counts, while_cells.host_reads, wall
+
+
+def counted_solve(torch, problem, spec):
+    """`repro_torch.solve` under `counted`."""
+    from repro_torch import solve
+
+    return counted(torch, lambda: solve(problem, spec))
 
 
 def phase_main_path(torch):
@@ -336,6 +537,152 @@ def phase_main_path(torch):
     return dict(launches=counts, host_reads=reads)
 
 
+def sp2_feasible(torch, sysp, p, B):
+    """Finite, inside the budget (sums in float64) and inside the power
+    box, per cell."""
+    b = sysp.batched()
+    C = b.gain.shape[0]
+    p, B = p.reshape(C, -1).double(), B.reshape(C, -1).double()
+    return {
+        "finite": bool(torch.isfinite(p).all() and torch.isfinite(B).all()),
+        "bandwidth": bool((B >= 0).all() and (B.sum(-1, keepdim=True)
+                          <= b.bandwidth_total.double() * (1 + 1e-6)).all()),
+        "power": bool(((p >= b.p_min.double() * (1 - 1e-6))
+                       & (p <= b.p_max.double() * (1 + 1e-6))).all()),
+    }
+
+
+def max_rel(torch, a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).abs() / b.abs().clamp_min(1e-300)).max())
+
+
+def phase_region_sp2(torch):
+    """The paper-literal SP2 of one 2^17-device region in float32 (the
+    Theorem-2 path through `waterfill_gprime`, beside the default direct
+    solve), then card vs CPU on an N=4096 slice of it in float64."""
+    from repro_torch.core.sp2 import solve_sp2_direct, solve_sp2_v2_thm2
+    from repro_torch.core.types import Weights
+
+    w = Weights(*WEIGHTS)
+    region = region_system(torch, torch.float32)
+    rmin, nu, beta = thm2_instance(torch, region)
+    (p_d, B_d), counts_d, reads_d, wall_d = counted(
+        torch, lambda: solve_sp2_direct(region, rmin))
+    (p_t, B_t), counts, reads, wall = counted(
+        torch, lambda: solve_sp2_v2_thm2(region, w, nu, beta, rmin))
+    warm = [counted(torch, lambda: solve_sp2_v2_thm2(region, w, nu, beta,
+                                                     rmin)) for _ in range(3)]
+    feas_d = sp2_feasible(torch, region, p_d, B_d)
+    feas_t = sp2_feasible(torch, region, p_t, B_t)
+
+    piece = region_system(torch, torch.float64, keep=REGION_SLICE)
+    rmin_s, nu_s, beta_s = thm2_instance(torch, piece)
+    cpu = piece.to("cpu")
+    slice_diff = {}
+    for name, fn in (("thm2", lambda sp, a, b, c: solve_sp2_v2_thm2(
+            sp, w, a, b, c)), ("direct", lambda sp, a, b, c:
+                               solve_sp2_direct(sp, c))):
+        pg, Bg = fn(piece, nu_s, beta_s, rmin_s)
+        pc, Bc = fn(cpu, nu_s.cpu(), beta_s.cpu(), rmin_s.cpu())
+        slice_diff[name] = dict(B=max_rel(torch, Bg, Bc),
+                                p=max_rel(torch, pg, pc))
+    run = dict(N=REGION_N, dtype="float32", launches=counts,
+               host_reads=reads, first_call_s=wall,
+               warm_walls_s=[x[3] for x in warm],
+               warm_median_s=statistics.median(x[3] for x in warm),
+               warm_launches=[x[1]["waterfill_gprime"] for x in warm],
+               warm_host_reads=[x[2] for x in warm],
+               thm2_feasible=feas_t, thm2_sum_B=float(B_t.double().sum()),
+               thm2_energy=transmit_energy(torch, region, p_t, B_t),
+               direct_s=wall_d, direct_host_reads=reads_d,
+               direct_launches=counts_d, direct_feasible=feas_d,
+               direct_energy=transmit_energy(torch, region, p_d, B_d),
+               B_total=float(region.bandwidth_total),
+               slice_N=REGION_SLICE, slice_card_vs_cpu=slice_diff)
+    record("region_sp2", **run)
+    check(all(feas_t.values()) and all(feas_d.values()),
+          f"region: infeasible or non-finite SP2 result {feas_t} {feas_d}")
+    for c, r, where in [(counts, reads, "first call")] + [
+            (x[1], x[2], "warm call") for x in warm]:
+        check(c["waterfill_gprime"] == 4,
+              f"region: {c['waterfill_gprime']} waterfill_gprime launches "
+              f"per Theorem-2 call ({where}), want 4")
+        check(r == 0, f"region: {r} host reads in a Theorem-2 call ({where})")
+    for name, d in slice_diff.items():
+        check(max(d.values()) <= 1e-8,
+              f"region slice: card vs CPU {name} differs by {d}")
+    return dict(launches=counts, host_reads=reads,
+                warm_median_s=run["warm_median_s"])
+
+
+def transmit_energy(torch, sysp, p, B):
+    """Sigma_n p d / G(p, B) of one allocation, in float64."""
+    from repro_torch.core.sp2 import G
+
+    s64 = sysp.to(dtype=torch.float64)
+    p, B = p.double(), B.double()
+    return float((p * s64.bits / torch.clamp_min(G(s64, p, B), 1e-12)).sum())
+
+
+def deadline_problem(torch, fleet, free):
+    """The deadline-fleet problem: each cell's deadline DEADLINE_SLACK x the
+    total time of its free-deadline solution, energy-heavy weights."""
+    from repro_torch import Problem, Weights
+    from repro_torch.core.energy import total_time
+
+    deadline = DEADLINE_SLACK * total_time(fleet, free.allocation)[:, 0]
+    return Problem(system=fleet, weights=Weights(*FIG8_WEIGHTS),
+                   deadline=deadline), deadline
+
+
+def phase_deadline_fleet(torch):
+    """The deadline-constrained BCD at full width: the C=64 x N=2048
+    float32 fleet, each cell's deadline from its free-deadline solve."""
+    from repro_torch import Problem, SolverSpec, Weights, solve
+    from repro_torch.core.energy import total_time
+
+    fleet = fleet_system(torch, torch.float32)
+    spec = SolverSpec(max_iters=FLEET_ITERS)
+
+    def path():
+        free = solve(Problem(system=fleet, weights=Weights(*WEIGHTS)), spec)
+        problem, deadline = deadline_problem(torch, fleet, free)
+        return solve(problem, spec), problem, deadline
+
+    (res, problem, deadline), counts, reads, wall = counted(torch, path)
+    solves = [counted_solve(torch, problem, spec) for _ in range(3)]
+    feas = feasible_cells(torch, fleet, res.allocation)
+    times = total_time(fleet, res.allocation)[:, 0].double()
+    late = (times / deadline.double()).max().item()
+    obj = res.objective.double()
+    run = dict(C=FLEET_C, N=FLEET_N, dtype="float32", max_iters=FLEET_ITERS,
+               weights=FIG8_WEIGHTS, deadline_slack=DEADLINE_SLACK,
+               path_launches=counts, path_host_reads=reads, path_s=wall,
+               iters=res.iters.cpu().tolist(),
+               batched_iters=int(res.iters.max()),
+               converged=int(res.converged.sum()), feasible=feas,
+               max_time_over_deadline=late,
+               deadline_s=[float(deadline.min()), float(deadline.max())],
+               mean_energy=float(obj.mean()),
+               objective_finite=bool(torch.isfinite(obj).all()),
+               walls_s=[x[3] for x in solves],
+               median_s=statistics.median(x[3] for x in solves),
+               host_reads=solves[-1][2], launches=solves[-1][1],
+               sp2_evals=res.counters.sp2_evals.double().mean().item())
+    record("deadline_fleet", **run)
+    check(run["objective_finite"] and all(feas.values()),
+          f"deadline fleet: infeasible or non-finite result {feas}")
+    check(late <= 1.05, f"deadline fleet: a cell runs {late:.4f} x its "
+                        f"deadline (limit 1.05)")
+    check(counts["sp1_lambda_sum"] > 0,
+          "deadline fleet: sp1_lambda_sum never ran on the path")
+    check(all(x[1] == {"sp1_lambda_sum": 0, "waterfill_gprime": 0}
+              for x in solves),
+          "deadline fleet: the deadline solve launched a dual-sweep kernel")
+    return run
+
+
 def phase_card_vs_cpu(torch):
     """Four fleet cells and the paper cell in float64, solved on the card
     and on the CPU."""
@@ -375,6 +722,69 @@ def phase_card_vs_cpu(torch):
           "card vs CPU: BCD iteration counts differ")
 
 
+def phase_paper_paths(torch):
+    """The engines and topologies of this slice in float64, card vs CPU:
+    objectives to 1e-8 relative and equal BCD iterations."""
+    from repro_torch import Problem, SolverSpec, Weights, make_system, solve
+    from repro_torch.core.accuracy import log_fit
+    from repro_torch.core.types import dbm_to_watt
+
+    rows = []
+
+    def compare(label, problem, spec):
+        cpu_problem = Problem(
+            system=problem.system.to("cpu"), weights=problem.weights,
+            acc=problem.acc, deadline=problem.deadline
+            if not torch.is_tensor(problem.deadline)
+            else problem.deadline.cpu())
+        t0 = time.perf_counter()
+        gpu = solve(problem, spec)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = solve(cpu_problem, spec)
+        cpu_s = time.perf_counter() - t0
+        if isinstance(gpu.objective, float):
+            og = torch.tensor([gpu.objective], dtype=torch.float64)
+            oc = torch.tensor([cpu.objective], dtype=torch.float64)
+            ig, ic = [gpu.iters], [cpu.iters]
+        else:
+            og, oc = gpu.objective.cpu(), cpu.objective
+            ig, ic = gpu.iters.cpu().tolist(), cpu.iters.tolist()
+        rel = float(((og - oc).abs() / oc.abs()).max())
+        rows.append(dict(case=label, objective_card=og.tolist(),
+                         objective_cpu=oc.tolist(), max_rel_diff=rel,
+                         iters_card=ig, iters_cpu=ic, card_s=card_s,
+                         cpu_s=cpu_s))
+        check(rel <= 1e-8, f"paper paths, {label}: card vs CPU objective "
+                           f"rel diff {rel:.3g} > 1e-8")
+        check(ig == ic, f"paper paths, {label}: BCD iterations differ "
+                        f"({ig} vs {ic})")
+
+    fig8 = make_system(FIG8_SEED, n_devices=FIG8_N, device="cuda",
+                       dtype=torch.float64, p_max=dbm_to_watt(FIG8_PMAX_DBM))
+    for T_total in FIG8_DEADLINES:
+        compare(f"fig8.T{T_total:g}", Problem(
+            system=fig8, weights=Weights(*FIG8_WEIGHTS), deadline=T_total),
+            SolverSpec(max_iters=FIG8_ITERS))
+    cell = make_system(PAPER_SEED, n_devices=PAPER_N, device="cuda",
+                       dtype=torch.float64)
+    weights = Weights(*WEIGHTS)
+    compare("paper.bisect", Problem(system=cell, weights=weights),
+            SolverSpec(sp1_method="bisect"))
+    compare("paper.jong", Problem(system=cell, weights=weights),
+            SolverSpec(**JONG_SPEC))
+    compare("paper.log", Problem(system=cell, weights=weights,
+                                 acc=log_fit()), SolverSpec())
+    four = fleet_system(torch, torch.float64, 4)
+    spec = SolverSpec(max_iters=FLEET_ITERS)
+    free = solve(Problem(system=four, weights=weights), spec)
+    problem, _ = deadline_problem(torch, four, free)
+    compare("fleet4.deadline", problem, spec)
+    record("paper_paths", dtype="float64", cases=rows,
+           jong_cut=JONG_SPEC)
+
+
 def event_ms(torch, fn, reps):
     """Mean milliseconds per call of `fn` over `reps` calls (CUDA events),
     after a warm-up call."""
@@ -390,9 +800,30 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_time(torch, kernel, plain, args, reps, plain_reps, ops, dtype):
+    """ms per launch of `kernel` (CUDA events; the timing launches do not
+    count on the main path), ms of its plain version, and its bound: the
+    larger of the bytes it must move (each input read once, the output
+    written once) at HBM peak and its counted operations at `dtype`'s peak."""
+    launches = kernel.launches
+    ms = event_ms(torch, lambda: kernel(*args), reps)
+    kernel.launches = launches
+    plain_ms = event_ms(torch, lambda: plain(*args), plain_reps)
+    out = plain(*args)
+    moved = sum(a.numel() * a.element_size() for a in args) \
+        + out.numel() * out.element_size()
+    bytes_ms = moved / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_OPS_S[dtype] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=None), dict(bytes=moved, ops=ops,
+                                       bytes_bound_ms=bytes_ms,
+                                       ops_bound_ms=ops_ms)
+
+
 def phase_times(torch, kernels):
     from repro_torch import Problem, SolverSpec, Weights
-    from repro_torch.kernels import sp1_sweep
+    from repro_torch.kernels import sp1_sweep, waterfill
 
     fleet = fleet_system(torch, torch.float32)
     problem = Problem(system=fleet, weights=Weights(*WEIGHTS))
@@ -406,56 +837,66 @@ def phase_times(torch, kernels):
            median_s=statistics.median(walls), host_reads=reads,
            launches=counts)
 
+    # library_ms: no single PyTorch call computes either function
     args, _, _ = sweep_inputs(torch, fleet)
     C, M = args[0].shape
     N = args[1].shape[1]
-    launches = sp1_sweep.sp1_lambda_sum.launches
-    ms = event_ms(torch, lambda: sp1_sweep.sp1_lambda_sum(*args), 200)
-    sp1_sweep.sp1_lambda_sum.launches = launches   # timing runs do not count
-    plain_ms = event_ms(torch, lambda: sp1_sweep.sp1_lambda_sum_ref(*args), 10)
-    itemsize = args[0].element_size()
-    moved = itemsize * (C * M + 2 * C * N + C * 8 + C * M)
-    ops = SP1_OPS_PER_PAIR * C * M * N
-    bytes_ms = moved / PEAK_BYTES_S * 1e3
-    ops_ms = ops / PEAK_OPS_S["float32"] * 1e3
-    k = kernels[0]
-    k.update(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-             library_ms=None)
+    times, extra = kernel_time(torch, sp1_sweep.sp1_lambda_sum,
+                               sp1_sweep.sp1_lambda_sum_ref, args, 200, 10,
+                               SP1_OPS_PER_PAIR * C * M * N, "float32")
+    kernels[0].update(times)
     record("kernel_times", kernel="sp1_lambda_sum", C=C, M=M, N=N,
-           dtype="float32", ms=ms, plain_ms=plain_ms, bytes=moved, ops=ops,
-           bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
+           dtype="float32", **times, **extra)
+
+    region = region_system(torch, torch.float32)
+    rmin, nu, _ = thm2_instance(torch, region)
+    args = thm2_sweep_inputs(torch, region, nu, rmin)
+    C, M = args[0].shape
+    N = args[1].shape[1]
+    times, extra = kernel_time(torch, waterfill.waterfill_gprime,
+                               waterfill.waterfill_gprime_ref, args, 50, 3,
+                               WATERFILL_OPS_PER_PAIR * C * M * N, "float32")
+    kernels[1].update(times)
+    record("kernel_times", kernel="waterfill_gprime", C=C, M=M, N=N,
+           dtype="float32", **times, **extra)
 
 
-def phase_profile(torch):
-    """One fleet solve under torch.profiler: the card's busy time (sum of
-    kernel self times; one stream, so kernels do not overlap), its idle
-    share of the traced wall time, the kernel launches and the kernels
-    that take the most time. Tracing slows the host, so the traced wall
-    time is longer than the untraced one of `fleet_solve`."""
+def trace(torch, label, problem, spec):
+    """One solve under torch.profiler: the card's busy time (sum of kernel
+    self times; one stream, so kernels do not overlap), its idle share of
+    the traced wall time, the kernel launches and the kernels that take the
+    most time. Tracing slows the host, so the traced wall time is longer
+    than the untraced one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import Problem, SolverSpec, Weights
-
-    problem = Problem(system=fleet_system(torch, torch.float32),
-                      weights=Weights(*WEIGHTS))
-    spec = SolverSpec(max_iters=FLEET_ITERS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, reads, wall = counted_solve(torch, problem, spec)
+        _, counts, reads, wall = counted_solve(torch, problem, spec)
     gpu = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
     top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:6]
-    record("profile", C=FLEET_C, N=FLEET_N, dtype="float32",
+    record("profile", topology=label, C=FLEET_C, N=FLEET_N, dtype="float32",
            traced_wall_s=wall, device_busy_ms=busy_ms,
            device_idle_share=(1.0 - busy_ms / (wall * 1e3)) if busy_ms
            else None, kernel_launches=sum(e.count for e in gpu),
-           host_reads=reads,
+           host_reads=reads, launches=counts,
            top_kernels=[dict(name=e.key[:80], calls=e.count,
                              device_ms=e.self_device_time_total / 1e3)
                         for e in top])
+
+
+def phase_profile(torch):
+    """The fleet solve and the deadline-fleet solve, traced."""
+    from repro_torch import Problem, SolverSpec, Weights, solve
+
+    fleet = fleet_system(torch, torch.float32)
+    spec = SolverSpec(max_iters=FLEET_ITERS)
+    problem = Problem(system=fleet, weights=Weights(*WEIGHTS))
+    trace(torch, "fleet", problem, spec)
+    deadline, _ = deadline_problem(torch, fleet, solve(problem, spec))
+    trace(torch, "deadline_fleet", deadline, spec)
 
 
 if __name__ == "__main__":

@@ -8,10 +8,15 @@ The port of `repro` (the JAX package beside it, which stays the reference):
     res = solve(Problem(system=sys_, weights=Weights(0.5, 0.5, 1.0)),
                 SolverSpec(max_iters=8))
 
-Ported so far: the paper's Algorithm 2 through `solve` with the default
-spec (SP1 "sweep" over LinearAccuracy, SP2 "direct"), for one cell and for
-a stacked (C, N) fleet, which runs every cell in one batch. SP1's dual
-sweep is a hand-written CUDA kernel (`kernels/csrc/sp1_sweep.cu`), built
+Ported so far: the paper's Algorithm 2 through `solve` with every engine
+of `SolverSpec` (SP1 "sweep" or "bisect", SP2 "direct" or the paper's
+Algorithm 1 "jong") and any concave accuracy model, for one cell and for
+a stacked (C, N) fleet, which runs every cell in one batch; the
+deadline-constrained variant (`Problem.deadline`, scalar or per cell);
+the paper-literal Theorem-2 SP2 solve (`core.sp2.solve_sp2_v2_thm2`) and
+the paper's baselines (`core.baselines`). Two hand-written CUDA kernels
+carry the dual sweeps, SP1's `sp1_lambda_sum` (`kernels/csrc/sp1_sweep.cu`)
+and Theorem 2's `waterfill_gprime` (`kernels/csrc/waterfill.cu`), built
 with nvcc at first use. Entry points build on CUDA unless the caller asks
 for `device="cpu"`; `solve` runs on the device of the system's tensors.
 The module layout mirrors `repro` file for file; this package imports

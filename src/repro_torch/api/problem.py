@@ -5,7 +5,9 @@ objective weights and the optional extras; `solve` routes on its topology:
 
   * ``system.gain`` (N,)           -> single-cell BCD
   * ``system.gain`` (C, N)         -> fleet (every cell in one batch)
-  * ``mesh`` / ``rounds`` / ``deadline`` / ``assoc`` set
+  * ``deadline`` set               -> the deadline-constrained BCD, single
+                                      cell or fleet
+  * ``mesh`` / ``rounds`` / ``assoc`` set
                                    -> not ported yet (NotImplementedError)
 
 Weights are data: `weights_leaf` lowers them to a (3,) / (C, 3) tensor,
@@ -89,9 +91,14 @@ class Problem:
         `Weights`, or a raw (3,)/(C, 3) array.
     acc : accuracy model (default `default_accuracy()`).
     init : warm-start `Allocation` (tensors shaped like the system's).
-    mesh, rounds, key, deadline, bandwidth_frac, assoc : the topologies of
-        `repro.api.Problem` that a later slice ports; `solve` raises
-        NotImplementedError when one is set.
+    deadline : total training-time budget (all global rounds) of the
+        deadline-constrained variant (paper Figs. 8-9): a scalar, or on a
+        (C, N) stack a (C,) per-cell array.
+    bandwidth_frac : share of the budget the deadline variant's start
+        splits equally (Fig. 9 starts from B/(2N), 0.5).
+    mesh, rounds, key, assoc : the topologies of `repro.api.Problem` that
+        a later slice ports; `solve` raises NotImplementedError when one is
+        set (`key` is read only by `rounds`).
     """
     system: SystemParams
     weights: WeightsLike
@@ -100,7 +107,7 @@ class Problem:
     mesh: Optional[Any] = None
     rounds: Optional[Any] = None
     key: Optional[Any] = None
-    deadline: Optional[float] = None
+    deadline: Optional[Union[float, Sequence[float], Tensor]] = None
     bandwidth_frac: float = 1.0
     assoc: Optional[Any] = None
 

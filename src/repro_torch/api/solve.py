@@ -1,13 +1,17 @@
 """`solve(problem, spec)` — the one entry point to Algorithm 2.
 
-Port of `repro/api/solve.py` for the single-cell and fleet topologies:
+Port of `repro/api/solve.py` for these topologies:
 
     single cell        -> BCD (`BCDResult`)
     (C, N) stack       -> the same BCD on every cell at once (`FleetResult`)
+    + deadline         -> deadline-constrained BCD (`BCDResult`; on a
+                          (C, N) stack every cell at once, with a scalar or
+                          a (C,) per-cell deadline -> `FleetResult`)
 
-The solve runs on the device the system's tensors live on. The other
-topologies of `repro.solve` raise NotImplementedError naming the ROADMAP
-item that ports them.
+Every engine of `SolverSpec` runs on each of them (SP1 "sweep"/"bisect",
+SP2 "direct"/"jong"). The solve runs on the device the system's tensors
+live on. The other topologies of `repro.solve` raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -16,16 +20,16 @@ from typing import Optional
 import torch
 
 from ..core.accuracy import default_accuracy
-from ..core.bcd import (_LEDGER_COLS, BCDResult, SolveCounters,
-                        _allocate_impl, _fleet_result, _init_carry_state,
-                        _materialize_history, initial_allocation)
+from ..core.bcd import (_FIXED_COLS, _LEDGER_COLS, BCDResult, SolveCounters,
+                        _allocate_fixed_impl, _allocate_impl, _fleet_result,
+                        _init_carry_state, _materialize_history,
+                        initial_allocation)
 from ..core.types import Allocation, SystemParams
 from .problem import Problem, weights_leaf
 from .spec import SolverSpec, warn_tol_floor
 
 # Problem fields of topologies not ported yet -> the ROADMAP item porting them
 _LATER = {
-    "deadline": "Queue 1 item 4 (the deadline-constrained BCD)",
     "rounds": "Queue 1 item 6 (round dynamics)",
     "mesh": "Queue 1 item 9 (the serving pipeline and its mesh)",
     "assoc": "Queue 1 item 10 (association)",
@@ -56,42 +60,70 @@ def solve(problem: Problem, spec: Optional[SolverSpec] = None):
                 f"ROADMAP.md {item}")
     if spec.lockstep:
         raise ValueError("solve: SolverSpec.lockstep requires Problem.mesh")
-    if spec.sp1_method != "sweep" or spec.sp2_method != "direct":
-        raise NotImplementedError(
-            f"repro_torch.solve: sp1_method={spec.sp1_method!r} / "
-            f"sp2_method={spec.sp2_method!r} are not ported yet; see "
-            f"ROADMAP.md Queue 1")
     cells = problem.cells   # also validates system.gain is 1-D or 2-D
     sysp, init = _apply_dtype(problem.system, problem.init, spec.dtype)
     warn_tol_floor(spec.tol, sysp.dtype)
     acc = problem.acc if problem.acc is not None else default_accuracy()
-    alloc0 = init if init is not None else initial_allocation(sysp)
+    alloc0 = init if init is not None else initial_allocation(
+        sysp, bandwidth_frac=problem.bandwidth_frac
+        if problem.deadline is not None else 1.0)
     batch = sysp.batched()
     state0 = _init_carry_state(batch, alloc0)
     warr = weights_leaf(problem.weights, sysp.dtype, sysp.device,
                         cells=1 if cells is None else cells)
-    out = _allocate_impl(batch, warr, acc, state0, spec.max_iters, spec.tol)
+    if problem.deadline is None:
+        out = _allocate_impl(batch, warr, acc, state0, spec.max_iters,
+                             spec.tol, spec.sp1_method, spec.sp2_method,
+                             spec.sp2_iters)
+        cols = _LEDGER_COLS
+    else:
+        out = _allocate_fixed_impl(batch, warr, acc,
+                                   _per_cell_T_round(problem, batch, cells),
+                                   state0, spec.max_iters, spec.tol,
+                                   spec.sp2_method, spec.sp2_iters)
+        cols = _FIXED_COLS
     if cells is None:
-        return _bcd_result(out, alloc0, spec)
-    return _fleet_result(out, spec.max_iters)
+        return _bcd_result(out, alloc0, spec, cols)
+    return _fleet_result(out, spec.max_iters, cols)
 
 
-def _bcd_result(out, alloc0: Allocation, spec: SolverSpec) -> BCDResult:
+def _per_cell_T_round(problem: Problem, batch: SystemParams,
+                      cells: Optional[int]) -> torch.Tensor:
+    """The per-round deadline of every cell, (C, 1): Problem.deadline (a
+    total budget over all rounds: a scalar, or a (C,) array on a stack)
+    over each cell's global_rounds."""
+    deadline = torch.as_tensor(problem.deadline, dtype=batch.dtype,
+                               device=batch.device)
+    C = batch.gain.shape[0]
+    if deadline.ndim > (0 if cells is None else 1) \
+            or (deadline.ndim == 1 and deadline.shape[0] != C):
+        want = "a scalar" if cells is None \
+            else f"a scalar or a ({C},) per-cell array"
+        raise ValueError(f"solve: deadline must be {want}, got shape "
+                         f"{tuple(deadline.shape)}")
+    return torch.broadcast_to(deadline.reshape(-1, 1), (C, 1)) \
+        / batch.global_rounds
+
+
+def _bcd_result(out, alloc0: Allocation, spec: SolverSpec, cols
+                ) -> BCDResult:
     """Single-cell result: the ledger materialized (or, with
     keep_history=False, only the objective), and the untouched init when
-    max_iters=0 ran nothing (objective NaN)."""
+    max_iters=0 ran nothing (objective NaN). Ledger column 0 is the
+    objective ("objective", or the deadline variant's "energy", which has
+    no s_relaxed)."""
     B, pw, f, s, s_hat, T, iters, conv, ledger, counters = out
     iters = int(iters[0])
     if spec.keep_history:
-        history = _materialize_history(ledger[0].cpu().numpy(), iters,
-                                       _LEDGER_COLS)
-        objective = history[-1]["objective"] if history else float("nan")
+        history = _materialize_history(ledger[0].cpu().numpy(), iters, cols)
+        objective = history[-1][cols[0]] if history else float("nan")
     else:
         history = []
         objective = float(ledger[0, iters - 1, 0]) if iters else float("nan")
-    allocation = Allocation(bandwidth=B[0], power=pw[0], freq=f[0],
-                            resolution=s[0], s_relaxed=s_hat[0],
-                            T=T[0, 0]) if iters else alloc0
+    allocation = Allocation(
+        bandwidth=B[0], power=pw[0], freq=f[0], resolution=s[0],
+        s_relaxed=s_hat[0] if cols is _LEDGER_COLS else None,
+        T=T[0, 0]) if iters else alloc0
     return BCDResult(allocation=allocation, objective=objective,
                      history=history, iters=iters, converged=bool(conv[0]),
                      counters=SolveCounters(data=counters[0]))

@@ -139,12 +139,9 @@ class SolverSpec:
         "float64" — an explicit policy casts system/init leaves before the
         solve and makes the tol floor check a hard error.
 
-    The spec accepts every value `repro`'s does; `repro_torch.solve` runs
-    the default "sweep"/"direct" path and raises NotImplementedError for
-    the engines and topologies a later slice ports (ROADMAP.md Queue 1).
-    Until then `sp2_iters` (read only by "jong") is validated but inert,
-    `lockstep=True` is rejected (no mesh yet), and sp1_method="bisect" /
-    sp2_method="jong" raise at solve time.
+    The spec accepts every value `repro`'s does, and `repro_torch.solve`
+    runs every engine; `lockstep=True` is rejected until the mesh topology
+    is ported (ROADMAP.md Queue 1).
     """
     max_iters: int = 20
     tol: float = DEFAULT_TOL

@@ -1,19 +1,29 @@
 """Subproblem 1 (paper §V-A, Appendix B): optimize (f, s, T) given (p, B).
 
-Port of `repro/core/sp1.py`, the default `method="sweep"` engine for the
-paper's LinearAccuracy:
+Port of `repro/core/sp1.py`:
 
     min_{f, s_hat, T}  w1 Rg sum_n alpha_n s_hat^2 f^2 + w2 Rg T - rho sum_n A_n(s_hat)
     s.t. f in [fmin, fmax], s_hat in [s_lo, s_hi],
          q_n s_hat^2 / f + T_trans_n <= T
 
 The KKT system (eqs. A.2-A.7) is solved by water-filling on the scalar map
-T -> Sigma_n lambda_n(T): every round evaluates Sigma_n lambda_n(T) for a
-geometric grid of candidate deadlines in one pass of the `sp1_lambda_sum`
-kernel (all cells at once), narrows to the sign-change bracket, and the
-last bracket ends with a secant step.
+T -> Sigma_n lambda_n(T), where lambda_n(T) inverts the decreasing
+per-device makespan T_n(lambda). Two engines, as in the reference:
 
-Every tensor carries the cell axis: (C, N) per device, (C, 1) per cell.
+  * method="sweep" (default): every round evaluates Sigma_n lambda_n(T) for
+    a geometric grid of candidate deadlines at once, narrows to the
+    sign-change bracket, and the last bracket ends with a secant step. For
+    the paper's LinearAccuracy each round is one pass of the
+    `sp1_lambda_sum` kernel (closed-form lambda_n(T), all cells at once);
+    any other concave accuracy model runs a 56-step lambda bisection per
+    grid point instead (12 points x 4 rounds, no kernel).
+  * method="bisect": the nested bisection (56 outer T steps x 56 inner
+    lambda steps), the sweep's parity oracle.
+
+`solve_sp1_fixed_T` is the deadline-constrained variant (Figs. 8-9): the
+round deadline is fixed and each device picks its resolution by
+enumeration. Every tensor carries the cell axis: (C, N) per device, (C, 1)
+per cell. All loops here have fixed trip counts: no host read.
 """
 from __future__ import annotations
 
@@ -24,22 +34,24 @@ import torch
 from ..kernels import ops as kops
 from ..kernels.sp1_sweep import N_CONSTS, _cbrt, lambda_of_T_linear
 from .accuracy import AccuracyModel, LinearAccuracy
-from .types import SystemParams, Weights
+from .types import SYS_ARRAYS, SYS_SCALARS, SystemParams, Weights
 
 Tensor = torch.Tensor
+
+_INNER_ITERS = 56
+_OUTER_ITERS = 56
+_S_ITERS = 48
 
 # `_SWEEP_ROUNDS` rounds of `_SWEEP_POINTS`-point grids shrink the bracket
 # by (points-1)^rounds: 3 x 16 resolves the default [T_lo, T_hi] range to
 # ~5e-3 relative before the secant step
 _SWEEP_POINTS = 16
 _SWEEP_ROUNDS = 3
+# generic (non-linear) accuracy models pay a full lambda bisection per grid
+# point: a coarser grid over one extra round (11^4 > 15^3)
+_SWEEP_POINTS_GENERIC = 12
+_SWEEP_ROUNDS_GENERIC = 4
 _LOG10_E = math.log10(math.e)
-
-
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet (a later slice; see "
-        f"ROADMAP.md Queue 1)")
 
 
 def _coeffs(sys: SystemParams, w: Weights):
@@ -60,15 +72,53 @@ def _f_of_lambda(sys: SystemParams, w: Weights, lam: Tensor) -> Tensor:
 
 def _s_of_lambda(sys: SystemParams, w: Weights, acc: AccuracyModel,
                  lam: Tensor) -> Tensor:
-    """Solve s*(2 a f^2 + 2 lam q / f) = rho A'(s) on [s_lo, s_hi]."""
-    if not isinstance(acc, LinearAccuracy):
-        raise _later_slice("SP1 for a non-linear accuracy model")
+    """Solve s*(2 a f^2 + 2 lam q / f) = rho A'(s) on [s_lo, s_hi]: closed
+    form for LinearAccuracy, a `_S_ITERS`-step bisection otherwise."""
     alpha, q = _coeffs(sys, w)
     f = _f_of_lambda(sys, w, lam)
     psi = 2.0 * alpha * (f * f) + 2.0 * lam * q / torch.clamp_min(f, 1e-9)
-    s_unc = w.rho * acc.slope / torch.clamp_min(psi,
-                                                torch.finfo(psi.dtype).tiny)
-    return torch.clamp(s_unc, sys.s_lo, sys.s_hi)
+    if isinstance(acc, LinearAccuracy):
+        s_unc = w.rho * acc.slope / torch.clamp_min(
+            psi, torch.finfo(psi.dtype).tiny)
+        return torch.clamp(s_unc, sys.s_lo, sys.s_hi)
+
+    def h(s):  # increasing in s (A concave)
+        return s * psi - w.rho * acc.deriv(s)
+
+    lo0 = torch.full_like(psi, sys.s_lo)
+    hi0 = torch.full_like(psi, sys.s_hi)
+    lo, hi = lo0, hi0
+    for _ in range(_S_ITERS):
+        mid = 0.5 * (lo + hi)
+        pos = h(mid) > 0
+        lo, hi = torch.where(pos, lo, mid), torch.where(pos, mid, hi)
+    s = 0.5 * (lo + hi)
+    s = torch.where(h(lo0) >= 0, sys.s_lo, s)
+    return torch.where(h(hi0) <= 0, sys.s_hi, s)
+
+
+def _makespan_of_lambda(sys: SystemParams, w: Weights, acc: AccuracyModel,
+                        lam: Tensor, tt: Tensor) -> Tensor:
+    _, q = _coeffs(sys, w)
+    f = _f_of_lambda(sys, w, lam)
+    s = _s_of_lambda(sys, w, acc, lam)
+    return q * (s * s) / torch.clamp_min(f, 1e-9) + tt
+
+
+def _lambda_of_T(sys: SystemParams, w: Weights, acc: AccuracyModel,
+                 T: Tensor, tt: Tensor, lam_hi: Tensor) -> Tensor:
+    """Per-device inverse of the decreasing map lambda -> T_n(lambda), by
+    an `_INNER_ITERS`-step bisection; broadcasts over T and tt."""
+    shape = torch.broadcast_shapes(T.shape, tt.shape)
+    lo = torch.zeros(shape, dtype=tt.dtype, device=tt.device)
+    hi = torch.broadcast_to(lam_hi, shape)
+    for _ in range(_INNER_ITERS):
+        mid = 0.5 * (lo + hi)
+        too_slow = _makespan_of_lambda(sys, w, acc, mid, tt) > T
+        lo, hi = torch.where(too_slow, mid, lo), torch.where(too_slow, hi, mid)
+    lam = 0.5 * (lo + hi)
+    fast = _makespan_of_lambda(sys, w, acc, torch.zeros_like(lam), tt) <= T
+    return torch.where(fast, 0.0, lam)
 
 
 def round_resolution(sys: SystemParams, s_hat: Tensor) -> Tensor:
@@ -128,47 +178,183 @@ def _sweep_consts(sys: SystemParams, w: Weights, acc: LinearAccuracy,
     return consts
 
 
+def _grid_view(sys: SystemParams, w: Weights):
+    """The batched system and weights with a candidate axis inserted after
+    the cell axis: (C, 1, N) per device, (C, 1, 1) per cell, so that a
+    (C, M, 1) grid of deadlines broadcasts against them."""
+    arrays = {k: getattr(sys, k)[:, None] for k in SYS_ARRAYS + SYS_SCALARS}
+    return (SystemParams(**arrays, resolutions=sys.resolutions),
+            Weights(w.w1[:, None], w.w2[:, None], w.rho[:, None]))
+
+
+def _bracket(S: Tensor, target: Tensor, grid: Tensor):
+    """The sweep's sign-change bracket of S (C, M), nonincreasing along a
+    grid: the first candidate under `target` and the one before it (the
+    last pair when none is under). Returns (lo, hi, S_lo, S_hi), each
+    (C, 1)."""
+    n = S.shape[-1]
+    index = torch.arange(n, device=S.device)
+    first = torch.where(S < target, index, n).amin(-1, keepdim=True)
+    idx = torch.where(first == n, n - 1, torch.clamp_min(first, 1))
+    return (grid.gather(-1, idx - 1), grid.gather(-1, idx),
+            S.gather(-1, idx - 1), S.gather(-1, idx))
+
+
 def _solve_sp1_sweep_impl(sys: SystemParams, warr: Tensor,
                           acc: AccuracyModel, tt: Tensor):
     """Batched T-grid sweep engine (method="sweep"): sys batched, warr
     (C, 3) = (w1, max(w2, 1e-9), rho), tt (C, N). Returns (f, s, s_hat, T)
-    with T (C, 1)."""
-    if not isinstance(acc, LinearAccuracy):
-        raise _later_slice("the SP1 sweep for a non-linear accuracy model")
+    with T (C, 1). LinearAccuracy runs each round as one `sp1_lambda_sum`
+    launch; other models run a lambda bisection per grid point."""
     w = Weights(warr[:, 0:1], warr[:, 1:2], warr[:, 2:3])
     _, q = _coeffs(sys, w)
     lam_hi, target, T_lo, T_hi = _sp1_bounds(sys, w, q, tt)
     tiny = torch.finfo(T_lo.dtype).tiny
 
-    consts = _sweep_consts(sys, w, acc, lam_hi)
-    k3, rhok = consts[:, 0:1], consts[:, 1:2]
+    linear = isinstance(acc, LinearAccuracy)
+    if linear:
+        consts = _sweep_consts(sys, w, acc, lam_hi)
+        k3, rhok = consts[:, 0:1], consts[:, 1:2]
 
-    n = _SWEEP_POINTS
-    index = torch.arange(n, device=T_lo.device)
+        def lam_sum(grid):
+            return kops.sp1_lambda_sum(grid, q, tt, consts)
+
+        n, rounds = _SWEEP_POINTS, _SWEEP_ROUNDS
+    else:
+        sys_g, w_g = _grid_view(sys, w)
+
+        def lam_sum(grid):
+            return _lambda_of_T(sys_g, w_g, acc, grid[:, :, None],
+                                tt[:, None, :], lam_hi[:, None]).sum(-1)
+
+        n, rounds = _SWEEP_POINTS_GENERIC, _SWEEP_ROUNDS_GENERIC
+
     lo, hi = T_lo, T_hi
     S_lo = S_hi = None
-    for _ in range(_SWEEP_ROUNDS):
+    for _ in range(rounds):
         grid = _geomspace(lo, hi, n)
-        S = kops.sp1_lambda_sum(grid, q, tt, consts)
         # Sigma lambda(T) is nonincreasing in T; bracket its target crossing
-        under = S < target
-        first = torch.where(under, index, n).amin(-1, keepdim=True)
-        idx = torch.where(first == n, n - 1, torch.clamp_min(first, 1))
-        lo, hi = grid.gather(-1, idx - 1), grid.gather(-1, idx)
-        S_lo, S_hi = S.gather(-1, idx - 1), S.gather(-1, idx)
+        lo, hi, S_lo, S_hi = _bracket(lam_sum(grid), target, grid)
     t = torch.clamp((S_lo - target) / torch.clamp_min(S_lo - S_hi, tiny),
                     0.0, 1.0)
     T = lo + t * (hi - lo)
-    lam = lambda_of_T_linear(T, q, tt, k3, rhok, sys.f_min, sys.f_max,
-                             sys.s_lo, sys.s_hi, lam_hi)
+    if linear:
+        lam = lambda_of_T_linear(T, q, tt, k3, rhok, sys.f_min, sys.f_max,
+                                 sys.s_lo, sys.s_hi, lam_hi)
+    else:
+        lam = _lambda_of_T(sys, w, acc, T, tt, lam_hi)
     return _finish_sp1(sys, w, acc, q, lam, tt, T)
+
+
+def _solve_sp1_impl(sys: SystemParams, warr: Tensor, acc: AccuracyModel,
+                    tt: Tensor):
+    """Nested-bisection engine (method="bisect"), the sweep's parity
+    oracle; same arguments and results as `_solve_sp1_sweep_impl`."""
+    w = Weights(warr[:, 0:1], warr[:, 1:2], warr[:, 2:3])
+    _, q = _coeffs(sys, w)
+    lam_hi, target, lo, hi = _sp1_bounds(sys, w, q, tt)
+    for _ in range(_OUTER_ITERS):
+        mid = 0.5 * (lo + hi)
+        lam = _lambda_of_T(sys, w, acc, mid, tt, lam_hi)
+        more_time = lam.sum(-1, keepdim=True) > target   # raise T
+        lo, hi = torch.where(more_time, mid, lo), \
+            torch.where(more_time, hi, mid)
+    T = 0.5 * (lo + hi)
+    lam = _lambda_of_T(sys, w, acc, T, tt, lam_hi)
+    return _finish_sp1(sys, w, acc, q, lam, tt, T)
+
+
+_SP1_IMPLS = {"sweep": _solve_sp1_sweep_impl, "bisect": _solve_sp1_impl}
 
 
 def dual_evals_per_iter(sp1_method: str, acc: AccuracyModel) -> int:
     """SP1 Sigma-lambda(T) dual evaluations one BCD iteration spends,
-    counted at the candidate-deadline level; the +1 is the final lambda(T)
-    inversion at the secant T."""
-    if sp1_method != "sweep" or not isinstance(acc, LinearAccuracy):
-        raise _later_slice(f"SP1 method {sp1_method!r} with "
-                           f"{type(acc).__name__}")
-    return _SWEEP_POINTS * _SWEEP_ROUNDS + 1
+    counted at the candidate-deadline level (closed form for LinearAccuracy
+    under "sweep", an `_INNER_ITERS` bisection otherwise); the +1 is the
+    final lambda(T) inversion at the bracketing result."""
+    if sp1_method == "sweep":
+        if isinstance(acc, LinearAccuracy):
+            return _SWEEP_POINTS * _SWEEP_ROUNDS + 1
+        return _SWEEP_POINTS_GENERIC * _SWEEP_ROUNDS_GENERIC + 1
+    if sp1_method == "bisect":
+        return _OUTER_ITERS + 1
+    raise ValueError(f"sp1_method must be sweep|bisect, got {sp1_method!r}")
+
+
+def _cells_view(sys: SystemParams, *xs: Tensor):
+    """The batched system and each per-device tensor as (C, N): the public
+    entries take one cell's (N,) tensors or a stack's (C, N)."""
+    b = sys.batched()
+    return b, tuple(torch.broadcast_to(x, sys.gain.shape).reshape(
+        b.gain.shape) for x in xs)
+
+
+def _weights_rows(w: Weights, C: int, like: Tensor, floor_w2: bool):
+    """(C, 3) rows (w1, w2, rho) from scalar or per-cell weights; w2 is
+    floored at 1e-9 for the free-deadline engines, as the reference does."""
+    cols = [torch.broadcast_to(torch.as_tensor(
+        x, dtype=like.dtype, device=like.device).reshape(-1), (C,))
+        for x in (w.w1, w.w2, w.rho)]
+    if floor_w2:
+        cols[1] = torch.clamp_min(cols[1], 1e-9)
+    return torch.stack(cols, -1)
+
+
+def solve_sp1(sys: SystemParams, w: Weights, acc: AccuracyModel,
+              bandwidth: Tensor, power: Tensor, method: str = "sweep"):
+    """Returns (f, s_discrete, s_hat, T) in the caller's layout: (N,)
+    tensors and a 0-d T for one cell, (C, N) and (C,) for a stack. T is the
+    per-round makespan consistent with the rounded resolution (SP2's
+    r_min uses it). method: "sweep" (default) or "bisect"."""
+    from .energy import rate
+
+    if method not in _SP1_IMPLS:
+        raise ValueError(f"method must be sweep|bisect, got {method!r}")
+    b, (bandwidth, power) = _cells_view(sys, bandwidth, power)
+    tt = b.bits / torch.clamp_min(rate(b, bandwidth, power), 1e-12)
+    warr = _weights_rows(w, tt.shape[0], tt, floor_w2=True)
+    f, s, s_hat, T = _SP1_IMPLS[method](b, warr, acc, tt)
+    if sys.gain.ndim == 1:
+        return f[0], s[0], s_hat[0], T[0, 0]
+    return f, s, s_hat, T[:, 0]
+
+
+def _solve_sp1_fixed_impl(sys: SystemParams, warr: Tensor,
+                          acc: AccuracyModel, tt: Tensor, T_round: Tensor):
+    """Deadline-constrained SP1 on a batched system, T_round (C, 1): per
+    device and menu option the smallest feasible f (energy rises with f),
+    then the option minimizing w1 Rg kappa q s^2 f^2 - rho A(s). Returns
+    (f, s), each (C, N)."""
+    w = Weights(warr[:, 0:1], warr[:, 1:2], warr[:, 2:3])
+    alpha, q = _coeffs(sys, w)
+    res = torch.as_tensor(sys.resolutions, dtype=tt.dtype, device=tt.device)
+    budget = torch.clamp_min(T_round - tt, 1e-9)[..., None]   # (C, N, 1)
+    f_req = q[..., None] * (res * res) / budget                 # (C, N, M)
+    feas = f_req <= sys.f_max[..., None] * (1.0 + 1e-9)
+    f_opt = torch.minimum(torch.maximum(f_req, sys.f_min[..., None]),
+                          sys.f_max[..., None])
+    obj = alpha[..., None] * (res * res) * (f_opt * f_opt) \
+        - w.rho[..., None] * acc.value(res)
+    obj = torch.where(feas, obj, torch.full((), float("inf"),
+                                            dtype=obj.dtype,
+                                            device=obj.device))
+    pick = obj.argmin(-1, keepdim=True)
+    return f_opt.gather(-1, pick)[..., 0], res[pick[..., 0]]
+
+
+def solve_sp1_fixed_T(sys: SystemParams, w: Weights, acc: AccuracyModel,
+                      bandwidth: Tensor, power: Tensor, T_round) -> tuple:
+    """Deadline-constrained variant of the Fig. 8/9 comparisons: the round
+    deadline is a hard constraint (no w2 T term) and s is picked exactly
+    by enumeration of the menu. T_round is a scalar or a per-cell (C,)
+    deadline. Returns (f, s) in the caller's layout."""
+    from .energy import rate
+
+    b, (bandwidth, power) = _cells_view(sys, bandwidth, power)
+    tt = b.bits / torch.clamp_min(rate(b, bandwidth, power), 1e-12)
+    C = tt.shape[0]
+    warr = _weights_rows(w, C, tt, floor_w2=False)
+    T = torch.broadcast_to(torch.as_tensor(
+        T_round, dtype=tt.dtype, device=tt.device).reshape(-1, 1), (C, 1))
+    f, s = _solve_sp1_fixed_impl(b, warr, acc, tt, T)
+    return (f[0], s[0]) if sys.gain.ndim == 1 else (f, s)

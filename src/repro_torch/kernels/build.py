@@ -6,8 +6,9 @@ no PyTorch headers, so a build takes seconds. Libraries go to
 `build/repro_torch/` at the root of the checkout, named by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
 is built once. Nothing is compiled at import: the first call of a kernel
-builds it, or `build()` builds every source. Fast math stays off: the
-kernels' tiny-guards and their cbrt/pow accuracy depend on it.
+builds it, or `build()` builds every source, one nvcc per source started
+together. Fast math stays off: the kernels' tiny-guards and their
+cbrt/pow/exp accuracy depend on it.
 """
 from __future__ import annotations
 
@@ -54,30 +55,42 @@ def log_path(name: str) -> Path:
 
 
 def build(names=None) -> dict:
-    """Compile every named source (default: all) that has no library yet.
-    Returns {name: seconds} for the sources it compiled; raises with the
-    compiler's output on failure."""
+    """Compile every named source (default: all) that has no library yet,
+    one nvcc per source, all started together. Returns {name: seconds from
+    the start to that library} for the sources it compiled; raises with
+    the compiler's output on failure and stops every compiler it started."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in (sources() if names is None else names)
+            if not library_path(n).exists()]
+    jobs = {}
     seconds = {}
-    for name in sources() if names is None else names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        try:
-            with open(log_path(name), "w") as log:
-                rc = subprocess.run(
-                    [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                     str(CSRC / f"{name}.cu")],
-                    stdout=log, stderr=subprocess.STDOUT).returncode
-            if rc != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {name}.cu:\n{log_path(name).read_text()}")
-            os.replace(tmp, out)
-        finally:
+    t0 = time.perf_counter()
+    try:
+        for name in todo:
+            tmp = library_path(name).with_name(
+                f"{library_path(name).stem}.{os.getpid()}.tmp.so")
+            log = open(log_path(name), "w")
+            jobs[name] = (subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=log, stderr=subprocess.STDOUT), tmp, log)
+        failed = []
+        for name, (proc, tmp, log) in jobs.items():
+            if proc.wait() != 0:
+                failed.append(name)
+                continue
+            os.replace(tmp, library_path(name))
+            seconds[name] = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(
+                f"{n}.cu:\n{log_path(n).read_text()}" for n in failed))
+    finally:
+        for proc, tmp, log in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
             tmp.unlink(missing_ok=True)
-        seconds[name] = time.perf_counter() - t0
     return seconds
 
 

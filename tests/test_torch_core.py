@@ -276,15 +276,6 @@ def test_sp1_geomspace_matches_jnp():
         np.testing.assert_allclose(ours[c], ref, rtol=1e-14)   # a few ulps
 
 
-def test_sp1_unported_engines_raise():
-    _, st = cell()
-    with pytest.raises(NotImplementedError):
-        tsp1._s_of_lambda(st, TWeights(0.5, 0.5, 1.0), tacc.log_fit(),
-                          torch.ones(50))
-    with pytest.raises(NotImplementedError):
-        tsp1.dual_evals_per_iter("bisect", tacc.default_accuracy())
-
-
 # ---------------------------------------------------------------------------
 # SP2: the direct engine
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ from repro_torch import make_fleet
 from repro_torch.core.accuracy import default_accuracy
 from repro_torch.core.sp1 import _coeffs, _sp1_bounds, _sweep_consts
 from repro_torch.core.types import Weights
-from repro_torch.kernels import sp1_sweep
+from repro_torch.kernels import sp1_sweep, waterfill
 
 
 @pytest.fixture
@@ -95,6 +95,110 @@ def test_solve_on_the_card_runs_the_kernel(cuda):
     cpu = solve(Problem(system=sysp.to("cpu"),
                         weights=Weights(0.5, 0.5, 1.0)),
                 SolverSpec(max_iters=8))
+    np.testing.assert_allclose(res.objective.cpu().numpy(),
+                               cpu.objective.numpy(), rtol=1e-8)
+    assert torch.equal(res.iters.cpu(), cpu.iters)
+
+
+def waterfill_inputs(device, dtype, n, cells=2, m=128, seed=5):
+    """A multiplier grid across the branch point (q = mu/j from ~1e-6 up)
+    and far above it, over device coefficients of the SP2 dual's scale."""
+    gen = torch.Generator().manual_seed(seed)
+    j = torch.rand((cells, n), generator=gen, dtype=torch.float64) * 1e-3 \
+        + 1e-5
+    rmin = torch.rand((cells, n), generator=gen, dtype=torch.float64) * 1e5
+    mu = torch.logspace(-9, 3, m, dtype=torch.float64).expand(cells, m)
+    b_total = torch.tensor([20e6 * n / 50] * cells, dtype=torch.float64)
+    return tuple(x.to(device=device, dtype=dtype).contiguous()
+                 for x in (mu, j, rmin, b_total))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [7, 1000, 1500, 2048])
+def test_waterfill_gprime_matches_plain_version(cuda, dtype, n):
+    xs = waterfill_inputs(cuda, dtype, n)
+    launches = waterfill.waterfill_gprime.launches
+    out = waterfill.waterfill_gprime(*xs)
+    again = waterfill.waterfill_gprime(*xs)
+    plain = waterfill.waterfill_gprime_ref(*xs)
+    torch.cuda.synchronize()
+    assert waterfill.waterfill_gprime.launches == launches + 2
+    assert torch.equal(out, again)     # fixed-order sums: bitwise repeatable
+    assert bool(torch.isfinite(out).all())
+    mu, j, rmin, b_total = xs
+    # scale: the positive sum g + B_total, at least Sigma rmin ln2. In
+    # float32 a term near the branch point has W + 1 ~ sqrt(2q) formed from
+    # -1 + p(...), so its relative rounding is ~6e-8 / sqrt(2q) (4e-5 at
+    # q = 1e-6), and the kernel's fused multiply-adds round it differently
+    # from the plain version's separate operations
+    scale = torch.maximum((plain + b_total[:, None]).abs(),
+                          rmin.sum(-1, keepdim=True) * math.log(2.0))
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert float(((out - plain).abs() / scale).max()) <= tol
+    assert torch.equal(out < 0, plain < 0)
+
+
+@pytest.mark.cuda
+def test_waterfill_gprime_rejects_bad_inputs(cuda):
+    mu, j, rmin, b = waterfill_inputs(cuda, torch.float32, 64)
+    with pytest.raises(TypeError):
+        waterfill.waterfill_gprime(mu.double(), j, rmin, b)
+    with pytest.raises(ValueError):
+        waterfill.waterfill_gprime(mu, j.t().contiguous().t(), rmin, b)
+    with pytest.raises(ValueError):
+        waterfill.waterfill_gprime(mu, j[0], rmin, b)
+    with pytest.raises(ValueError):
+        waterfill.waterfill_gprime(mu, j, rmin[:, :32], b)
+    with pytest.raises(ValueError):
+        waterfill.waterfill_gprime(mu, j.cpu(), rmin, b)
+
+
+@pytest.mark.cuda
+def test_thm2_on_the_card_launches_the_sweep(cuda):
+    from repro_torch.core import sp2
+    from repro_torch.core.loops import while_cells
+
+    sysp = make_fleet(7, 3, 512, device=cuda, dtype=torch.float64,
+                      bandwidth_total=20e6 * 512 / 50)
+    B0 = torch.broadcast_to(sysp.bandwidth_total / 512, sysp.gain.shape)
+    p0 = torch.broadcast_to(sysp.p_max, sysp.gain.shape)
+    rate0 = sp2.G(sysp, p0, B0)
+    rmin = 0.9 * rate0
+    nu = 0.5 * sysp.global_rounds / rate0
+    beta = p0 * sysp.bits / rate0
+    waterfill.waterfill_gprime.launches = 0
+    while_cells.host_reads = 0
+    p, B = sp2.solve_sp2_v2_thm2(sysp, Weights(0.5, 0.5, 1.0), nu, beta,
+                                 rmin)
+    torch.cuda.synchronize()
+    assert waterfill.waterfill_gprime.launches == 4
+    assert while_cells.host_reads == 0
+    cpu = sysp.to("cpu")
+    p1, B1 = sp2.solve_sp2_v2_thm2(cpu, Weights(0.5, 0.5, 1.0), nu.cpu(),
+                                   beta.cpu(), rmin.cpu())
+    np.testing.assert_allclose(B.cpu().numpy(), B1.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(p.cpu().numpy(), p1.numpy(), rtol=1e-10)
+
+
+@pytest.mark.cuda
+def test_deadline_solve_on_the_card_matches_the_cpu(cuda):
+    """The deadline BCD's SP1 is a closed-form enumeration and its SP2 the
+    direct search: it launches neither dual-sweep kernel."""
+    from repro_torch import Problem, SolverSpec, solve
+
+    sysp = make_fleet(3, 4, 256, device=cuda, dtype=torch.float64,
+                      bandwidth_total=20e6 * 256 / 50)
+    deadlines = torch.tensor([60.0, 80.0, 100.0, 120.0], dtype=torch.float64)
+    sp1_sweep.sp1_lambda_sum.launches = 0
+    waterfill.waterfill_gprime.launches = 0
+    res = solve(Problem(system=sysp, weights=Weights(0.99, 0.01, 1.0),
+                        deadline=deadlines.to(cuda)), SolverSpec(max_iters=6))
+    assert sp1_sweep.sp1_lambda_sum.launches == 0
+    assert waterfill.waterfill_gprime.launches == 0
+    cpu = solve(Problem(system=sysp.to("cpu"), weights=Weights(0.99, 0.01,
+                                                               1.0),
+                        deadline=deadlines), SolverSpec(max_iters=6))
     np.testing.assert_allclose(res.objective.cpu().numpy(),
                                cpu.objective.numpy(), rtol=1e-8)
     assert torch.equal(res.iters.cpu(), cpu.iters)

@@ -19,9 +19,11 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.interop, "
-            "repro_torch.kernels.ops, repro_torch.kernels.build; "
+            "repro_torch.core.baselines, repro_torch.kernels.ops, "
+            "repro_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(bool(bad))")
+            "('jax', 'jaxlib', 'repro', 'triton')); print(bad); "
+            "sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

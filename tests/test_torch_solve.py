@@ -170,23 +170,14 @@ def test_keep_history_false_keeps_the_objective(paper_cell):
     assert lean.history == [] and lean.objective == full.objective
 
 
-@pytest.mark.parametrize("extra, spec", [
-    (dict(deadline=10.0), {}), (dict(rounds=object()), {}),
-    (dict(mesh=object()), {}), (dict(assoc=object()), {}),
-    ({}, dict(sp1_method="bisect")), ({}, dict(sp2_method="jong"))])
-def test_unported_topologies_raise(paper_cell, extra, spec):
+@pytest.mark.parametrize("extra", [
+    dict(rounds=object()), dict(mesh=object()), dict(assoc=object())])
+def test_unported_topologies_raise(paper_cell, extra):
     _, st = paper_cell
     problem = rt.Problem(system=st, weights=rt.Weights(0.5, 0.5, 1.0),
                          **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.solve(problem, rt.SolverSpec(**spec))
-
-
-def test_non_linear_accuracy_raises(paper_cell):
-    _, st = paper_cell
-    with pytest.raises(NotImplementedError):
-        rt.solve(rt.Problem(system=st, weights=rt.Weights(0.5, 0.5, 1.0),
-                            acc=rt.core.accuracy.log_fit()))
+        rt.solve(problem, rt.SolverSpec())
 
 
 def test_solve_runs_where_the_system_lives(paper_cell):
