@@ -11,9 +11,11 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
   1. prints the card, its power limit, the torch/CUDA versions and the
      build times (and ptxas's register/spill report);
   2. holds each kernel against its plain PyTorch version on the card, at
-     the main paths' shapes and at ragged and edge-case ones, in float32
-     and float64, checks that two launches on the same inputs agree
-     bitwise and that kernel and plain sums pick the same bracket;
+     the main paths' shapes and at ragged and edge-case ones (float32 and
+     float64 for the solver kernels, float32 and bf16 for attention,
+     float32 for RWKV6 with its final state), checks that two launches on
+     the same inputs agree bitwise and that kernel and plain sums pick the
+     same bracket;
   3. drives the main paths through the port's entry points at full width,
      each with every kernel's launch count set to 0 just before and read
      just after:
@@ -26,6 +28,13 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          `waterfill_gprime` launches per call and no host read;
        - the deadline-constrained fleet (C=64 x N=2048, float32), each
          cell's deadline 1.2 x its free-deadline total time;
+       - LM serving through `repro_torch.launch.serve.main` for
+         internlm2-20b (dense GQA) and rwkv6-1.6b (RWKV6) at full width and
+         depth, bf16, batch 4, 2048-token prompts, 32 greedy tokens: one
+         flash_attention / rwkv6_scan launch per layer in the prefill, none
+         in decode; two runs give the same tokens, and a prefill over the
+         prompt plus the first token matches the first decode step (the
+         cache hand-over);
      and checks that every output is finite and feasible;
   4. solves on the card and on the CPU (where the plain versions run) in
      float64 and compares them: the paper cell and 4 fleet cells (the
@@ -33,13 +42,16 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      direct), the Fig. 8 cell under three deadlines, the paper cell with
      SP1 "bisect", with SP2 "jong" (cut to 3 BCD x 5 Algorithm-1
      iterations) and with the log accuracy model, and 4 fleet cells under
-     per-cell deadlines;
+     per-cell deadlines; and the reduced LMs in float32 (prefill and four
+     decode steps);
   5. times the warm fleet and deadline-fleet solves (median of 3) and each
-     kernel per launch (CUDA events) beside its bound and its plain
-     version;
-  6. traces one fleet solve and one deadline-fleet solve with
-     torch.profiler: the card's busy time and idle share, and the kernels
-     that take the most time.
+     kernel per launch (CUDA events) beside its bound, its plain version
+     and, for attention, scaled_dot_product_attention (timed only);
+  6. traces one fleet solve, one deadline-fleet solve and one LM prefill
+     and decode step per configuration with torch.profiler: the card's
+     busy time and idle share, and the kernels that take the most time.
+
+Each phase's seconds are printed as it ends.
 
 Each phase prints a JSON record. The line before the last lists the
 kernels; the last line is {"ok": true, "device": {...}}. Any failure exits
@@ -79,10 +91,35 @@ DEADLINE_SLACK = 1.2
 # reference's defaults are 20 x 30) to stay inside the run's time limit.
 JONG_SPEC = dict(max_iters=3, sp2_method="jong", sp2_iters=5)
 
+# The LM serving path: both configurations at full width and depth, bf16,
+# batch 4, 2048-token random prompts, 32 greedy tokens, weights from a seed.
+LM_DENSE, LM_RWKV = "internlm2-20b", "rwkv6-1.6b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 4, 2048, 32, 0
+# Last-position logits of a prefill over prompt + first token against the
+# first decode step's, relative to the largest logit: bf16 rounds the two
+# paths differently (the prefill's flash kernel and decode's plain attention
+# round scores and probs at different points; the rwkv token shift is cached
+# in bf16).
+LM_HANDOVER_TOL = 5e-2
+# card vs CPU on the reduced configs in float32 (TF32 off): logits to 1e-4
+LM_CARD_CPU_TOL = 1e-4
+# flash kernel vs plain, per element: |kernel - plain| <= tol |plain|
+# + 4 u r + atol. tol is tests/test_kernels.py's (bf16: over two bf16 ulps of
+# |o|, so the output's own rounding fits). The bf16 kernel rounds P to bf16
+# (unit roundoff u = 2^-8) before P V, the plain version keeps it in float32:
+# that makes an error of about u r, r = sqrt(sum_t p_t^2 v_t^2), large in the
+# first rows (a few keys) and small past them. float32 keeps P (u = 0).
+# atol is a floor for outputs near 0.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_ATOL = {"float32": 2e-6, "bfloat16": 1e-4}
+FLASH_P_ROUNDOFF = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+RWKV_TOL = 1e-4
+
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): HBM3
-# bandwidth, and the FP32 / FP64 rates outside the tensor cores.
+# bandwidth, the FP32 / FP64 rates outside the tensor cores, and the bf16
+# tensor-core rate.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float32": 67e12, "float64": 34e12}
+PEAK_OPS_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 
 # Floating-point operations of one lambda_n(T) evaluation in
 # lambda_of_T_linear, counting each add, multiply, divide, compare/select,
@@ -155,16 +192,33 @@ def main():
            cuda=torch.version.cuda, python=sys.version.split()[0],
            build_s=build_s, built=built, ptxas=ptxas)
 
-    kernels = [phase_sp1_kernel(torch), phase_waterfill_kernel(torch)]
-    fleet_run = phase_main_path(torch)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(torch, *args)
+        seconds[name] = time.perf_counter() - t
+        record("phase_seconds", name=name, seconds=seconds[name])
+        return out
+
+    kernels = [phase("sp1_kernel", phase_sp1_kernel),
+               phase("waterfill_kernel", phase_waterfill_kernel),
+               phase("flash_kernel", phase_flash_kernel),
+               phase("rwkv_kernel", phase_rwkv_kernel)]
+    fleet_run = phase("main_path", phase_main_path)
     kernels[0]["launches"] = fleet_run["launches"]["sp1_lambda_sum"]
-    region_run = phase_region_sp2(torch)
+    region_run = phase("region_sp2", phase_region_sp2)
     kernels[1]["launches"] = region_run["launches"]["waterfill_gprime"]
-    phase_deadline_fleet(torch)
-    phase_card_vs_cpu(torch)
-    phase_paper_paths(torch)
-    phase_times(torch, kernels)
-    phase_profile(torch)
+    serve_runs = phase("lm_serve", phase_lm_serve)
+    kernels[2]["launches"] = serve_runs[LM_DENSE]["launches"]["flash_attention"]
+    kernels[3]["launches"] = serve_runs[LM_RWKV]["launches"]["rwkv6_scan"]
+    phase("deadline_fleet", phase_deadline_fleet)
+    phase("card_vs_cpu", phase_card_vs_cpu)
+    phase("paper_paths", phase_paper_paths)
+    phase("lm_card_vs_cpu", phase_lm_card_vs_cpu)
+    phase("kernel_times", phase_times, kernels)
+    phase("profile", phase_profile)
+    record("phase_seconds", total=sum(seconds.values()), **seconds)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -470,10 +524,13 @@ def counted(torch, fn):
     0 just before and read just after. Returns (result, {kernel: launches},
     host reads, wall seconds)."""
     from repro_torch.core.loops import while_cells
-    from repro_torch.kernels import sp1_sweep, waterfill
+    from repro_torch.kernels import (flash_attention, rwkv6_scan, sp1_sweep,
+                                     waterfill)
 
     kernels = {"sp1_lambda_sum": sp1_sweep.sp1_lambda_sum,
-               "waterfill_gprime": waterfill.waterfill_gprime}
+               "waterfill_gprime": waterfill.waterfill_gprime,
+               "flash_attention": flash_attention.flash_attention,
+               "rwkv6_scan": rwkv6_scan.rwkv6_scan}
     for k in kernels.values():
         k.launches = 0
     while_cells.host_reads = 0
@@ -677,9 +734,8 @@ def phase_deadline_fleet(torch):
                         f"deadline (limit 1.05)")
     check(counts["sp1_lambda_sum"] > 0,
           "deadline fleet: sp1_lambda_sum never ran on the path")
-    check(all(x[1] == {"sp1_lambda_sum": 0, "waterfill_gprime": 0}
-              for x in solves),
-          "deadline fleet: the deadline solve launched a dual-sweep kernel")
+    check(all(not any(x[1].values()) for x in solves),
+          "deadline fleet: the deadline solve launched a kernel")
     return run
 
 
@@ -860,31 +916,85 @@ def phase_times(torch, kernels):
     record("kernel_times", kernel="waterfill_gprime", C=C, M=M, N=N,
            dtype="float32", **times, **extra)
 
+    kernels[2].update(flash_time(torch))
+    kernels[3].update(rwkv_time(torch))
+
+
+def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
+                   dtype, reps, plain_reps):
+    """ms per launch of `fn` (CUDA events; its timing launches are taken
+    off `counter.launches`), of its plain version and of the library call,
+    and the bound: the larger of `moved` bytes at HBM peak and `ops` at
+    `dtype`'s peak."""
+    launches = counter.launches
+    ms = event_ms(torch, fn, reps)
+    counter.launches = launches
+    plain_ms = event_ms(torch, plain, plain_reps)
+    library_ms = event_ms(torch, library, reps) if library else None
+    bytes_ms = moved / PEAK_BYTES_S * 1e3
+    ops_ms = ops / PEAK_OPS_S[dtype] * 1e3
+    times = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                 library_ms=library_ms)
+    record("kernel_times", kernel=name, dtype=dtype, **times, bytes=moved,
+           ops=ops, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
+    return times
+
+
+def flash_time(torch):
+    """flash_attention at the internlm2-20b prefill shape (bf16, causal).
+    Operations: the causal (s, t) pairs this mask keeps, S (S + 1) / 2 per
+    (b, h), each a hd-long dot and a vd-long update (2 flops per MAC; the
+    exponentials are left out), at the bf16 tensor-core rate. library_ms
+    is one scaled_dot_product_attention call on the same tensors, timed
+    here only: the port never calls it."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, KV, S, T, hd, vd, _, _ = flash_cases()[-1]
+    q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, torch.bfloat16)
+    moved = sum(x.numel() * x.element_size() for x in (q, k, v)) \
+        + B * H * S * vd * q.element_size()
+    ops = B * H * (S * (S + 1) // 2) * 2 * (hd + vd)
+    return lm_kernel_time(
+        torch, "flash_attention", fa.flash_attention,
+        lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: fa.flash_attention_ref(q, k, v, causal=True),
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+        moved, ops, "bfloat16", 20, 3)
+
+
+def rwkv_time(torch):
+    """rwkv6_scan at the rwkv6-1.6b prefill shape (float32, chunk 64).
+    Operations: those of the recurrence the function defines, per (b, t, h):
+    r S (2 K^2), S <- w S + k v^T (3 K^2), w = exp(log w) (K) and the u bonus
+    (r u k summed, times v, added: 5 K), float32 outside the tensor cores;
+    the chunked form the kernel runs does more. Bytes: r, k, v, log w and u
+    read once, the output and the final state written once. No PyTorch call
+    computes it."""
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    B, T, H, K, L, _ = rwkv_cases()[-1]
+    xs = rwkv_inputs(torch, B, T, H, K)
+    ops = B * T * H * (5 * K * K + 6 * K)
+    moved = sum(x.numel() * x.element_size() for x in xs) \
+        + 4 * (B * T * H * K + B * H * K * K)
+    return lm_kernel_time(
+        torch, "rwkv6_scan", rw.rwkv6_scan,
+        lambda: rw.rwkv6_scan(*xs, chunk=L),
+        lambda: rw.rwkv6_scan_ref(*xs, chunk=L), None,
+        moved, ops, "float32", 20, 3)
+
 
 def trace(torch, label, problem, spec):
-    """One solve under torch.profiler: the card's busy time (sum of kernel
-    self times; one stream, so kernels do not overlap), its idle share of
-    the traced wall time, the kernel launches and the kernels that take the
-    most time. Tracing slows the host, so the traced wall time is longer
-    than the untraced one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, counts, reads, wall = counted_solve(torch, problem, spec)
-    gpu = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
-    top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:6]
+    """One solve under torch.profiler (`trace_call`), with its launch and
+    host-read counts. Tracing slows the host, so the traced wall time is
+    longer than the untraced one."""
+    (_, counts, reads, _), rec = trace_call(
+        torch, lambda: counted_solve(torch, problem, spec))
     record("profile", topology=label, C=FLEET_C, N=FLEET_N, dtype="float32",
-           traced_wall_s=wall, device_busy_ms=busy_ms,
-           device_idle_share=(1.0 - busy_ms / (wall * 1e3)) if busy_ms
-           else None, kernel_launches=sum(e.count for e in gpu),
-           host_reads=reads, launches=counts,
-           top_kernels=[dict(name=e.key[:80], calls=e.count,
-                             device_ms=e.self_device_time_total / 1e3)
-                        for e in top])
+           host_reads=reads, launches=counts, **rec)
 
 
 def phase_profile(torch):
@@ -898,6 +1008,328 @@ def phase_profile(torch):
     deadline, _ = deadline_problem(torch, fleet, solve(problem, spec))
     trace(torch, "deadline_fleet", deadline, spec)
 
+
+# ---------------------------------------------------------------------------
+# the LM serving path: flash_attention and rwkv6_scan
+# ---------------------------------------------------------------------------
+
+def flash_cases():
+    """(B, H, KV, S, T, hd, vd, causal, window): tests/test_kernels.py's
+    shapes (MHA, GQA 2:1, MQA, window 128, non-causal T != S), ragged ones,
+    and the internlm2-20b prefill (last, on the main path)."""
+    return [(1, 2, 2, 128, 128, 64, 64, True, None),
+            (2, 4, 2, 256, 256, 64, 64, True, None),
+            (1, 8, 1, 128, 128, 128, 128, True, None),
+            (2, 4, 2, 256, 256, 64, 64, True, 128),
+            (1, 2, 2, 128, 256, 64, 64, False, None),
+            (2, 4, 2, 77, 77, 32, 32, True, None),
+            (1, 3, 1, 70, 130, 96, 64, False, None),
+            (LM_BATCH, 48, 8, LM_PROMPT, LM_PROMPT, 128, 128, True, None)]
+
+
+def flash_inputs(torch, B, H, KV, S, T, hd, vd, dtype, seed=0):
+    # unit-variance q and k: the scores spread by about 1, so the softmax is
+    # far from uniform and |o| is not held small by averaging
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, H, S, hd), generator=gen, device="cuda")
+    k = torch.randn((B, KV, T, hd), generator=gen, device="cuda")
+    v = torch.randn((B, KV, T, vd), generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def flash_spread(torch, q, k, v, causal, window):
+    """r = sqrt(sum_t p_st^2 v_t^2) for every output element, from the plain
+    version's softmax P (default scale), one batch row at a time."""
+    G, S, T = q.shape[1] // k.shape[1], q.shape[2], k.shape[2]
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    hidden = (kpos > qpos) if causal else torch.zeros_like(kpos > qpos)
+    if window is not None:
+        hidden = hidden | (kpos <= qpos - window)
+    rows = []
+    for b in range(q.shape[0]):
+        kb = k[b].float().repeat_interleave(G, 0)
+        vb = v[b].float().repeat_interleave(G, 0)
+        sc = q[b].float() @ kb.transpose(-1, -2) * q.shape[-1] ** -0.5
+        p = torch.softmax(sc.masked_fill(hidden, -1e30), -1)
+        rows.append(((p * p) @ (vb * vb)).sqrt())
+        del kb, vb, sc, p
+    return torch.stack(rows)
+
+
+def phase_flash_kernel(torch):
+    """flash_attention against its plain version on the card."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows, main_err = [], 0.0
+    cases = flash_cases()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        tol, atol = FLASH_TOL[name], FLASH_ATOL[name]
+        u = FLASH_P_ROUNDOFF[name]
+        for i, (B, H, KV, S, T, hd, vd, causal, window) in enumerate(cases):
+            q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, dtype)
+            kw = dict(causal=causal, window=window)
+            out = fa.flash_attention(q, k, v, **kw)
+            again = fa.flash_attention(q, k, v, **kw)
+            plain = fa.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            mag = plain.float().abs()
+            err = (out.float() - plain.float()).abs()
+            spread = flash_spread(torch, q, k, v, causal, window) if u \
+                else torch.zeros_like(mag)
+            allowed = tol * mag + 4 * u * spread + atol
+            excess = float((err - allowed).max())
+            where = f"{(B, H, KV, S, T, hd, vd)}, causal={causal}, " \
+                    f"window={window}, {name}"
+            rows.append(dict(shape=[B, H, KV, S, T, hd, vd], causal=causal,
+                             window=window, dtype=name,
+                             max_abs_err=float(err.max()), tol=tol,
+                             atol=atol, p_roundoff=u,
+                             median_abs_plain=float(mag.median()),
+                             median_allowed=float(allowed.median()),
+                             max_err_over_allowed=float((err / allowed).max()),
+                             finite=bool(torch.isfinite(out).all()),
+                             repeatable=torch.equal(out, again)))
+            if i == len(cases) - 1 and dtype == torch.bfloat16:
+                main_err = float(err.max())
+            check(rows[-1]["finite"], f"flash_attention: non-finite ({where})")
+            check(rows[-1]["repeatable"],
+                  f"flash_attention: two launches differ ({where})")
+            check(excess <= 0, f"flash_attention: |kernel - plain| exceeds "
+                               f"{tol:g} |plain| + 4 ({u:g}) r + {atol:g} "
+                               f"({where})")
+            del q, k, v, out, again, plain, err, mag, spread, allowed
+    torch.cuda.empty_cache()
+    record("kernel_vs_plain", kernel="flash_attention",
+           tolerance="|kernel - plain| <= tol |plain| + 4 u r + atol, "
+                     "r = sqrt(sum_t p_t^2 v_t^2)", cases=rows)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:67",
+                launches=None, max_abs_err=main_err)
+
+
+def rwkv_inputs(torch, B, T, H, K, strong=False, seed=2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = torch.randn((B, T, H, K), generator=gen, device="cuda") * 0.5
+    k = torch.randn((B, T, H, K), generator=gen, device="cuda") * 0.5
+    v = torch.randn((B, T, H, K), generator=gen, device="cuda")
+    logw = torch.full((B, T, H, K), -8.0, device="cuda") if strong else \
+        -torch.exp(torch.randn((B, T, H, K), generator=gen, device="cuda")
+                   * 0.5 - 0.5)
+    u = torch.randn((H, K), generator=gen, device="cuda") * 0.3
+    return r, k, v, logw, u
+
+
+def rwkv_cases():
+    """(B, T, H, K, chunk, strong): tests/test_kernels.py's shapes, the
+    log w = -8 strong decay, ragged T, and the rwkv6-1.6b prefill (last)."""
+    return [(1, 64, 2, 32, 32, False), (2, 128, 4, 64, 64, False),
+            (1, 128, 2, 32, 64, True), (2, 100, 3, 32, 16, False),
+            (LM_BATCH, LM_PROMPT, 32, 64, 64, False)]
+
+
+def phase_rwkv_kernel(torch):
+    """rwkv6_scan against its plain version on the card: output and final
+    state."""
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    rows, main_err = [], 0.0
+    cases = rwkv_cases()
+    for i, (B, T, H, K, chunk, strong) in enumerate(cases):
+        xs = rwkv_inputs(torch, B, T, H, K, strong)
+        o, S = rw.rwkv6_scan(*xs, chunk=chunk)
+        o2, S2 = rw.rwkv6_scan(*xs, chunk=chunk)
+        po, pS = rw.rwkv6_scan_ref(*xs, chunk=chunk)
+        torch.cuda.synchronize()
+        eo, eS = (o - po).abs(), (S - pS).abs()
+        excess = max(float((eo - RWKV_TOL * po.abs()).max()),
+                     float((eS - RWKV_TOL * pS.abs()).max()))
+        where = f"{(B, T, H, K)}, chunk={chunk}, strong={strong}"
+        rows.append(dict(shape=[B, T, H, K], chunk=chunk, strong_decay=strong,
+                         dtype="float32", max_abs_err_out=float(eo.max()),
+                         max_abs_err_state=float(eS.max()), tol=RWKV_TOL,
+                         finite=bool(torch.isfinite(o).all()
+                                     and torch.isfinite(S).all()),
+                         repeatable=torch.equal(o, o2) and torch.equal(S, S2)))
+        if i == len(cases) - 1:
+            main_err = max(float(eo.max()), float(eS.max()))
+        check(rows[-1]["finite"], f"rwkv6_scan: non-finite ({where})")
+        check(rows[-1]["repeatable"],
+              f"rwkv6_scan: two launches differ ({where})")
+        check(excess <= RWKV_TOL, f"rwkv6_scan: |kernel - plain| exceeds "
+                                  f"{RWKV_TOL:g} (1 + |plain|) ({where})")
+    record("kernel_vs_plain", kernel="rwkv6_scan",
+           tolerance="|kernel - plain| <= tol (1 + |plain|), output and "
+                     "final state", cases=rows)
+    return dict(name="rwkv6_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan.py:63",
+                launches=None, max_abs_err=main_err)
+
+
+def serve_argv(arch):
+    return ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", str(LM_SEED),
+            "--device", "cuda"]
+
+
+def trace_call(torch, fn):
+    """fn() under torch.profiler: its wall time, the card's busy time and
+    idle share, and the kernels that take the most time. Returns (fn's
+    result, record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gpu = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
+    top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:8]
+    return out, dict(
+        traced_wall_s=wall, device_busy_ms=busy_ms,
+        device_idle_share=(1.0 - busy_ms / (wall * 1e3)) if busy_ms else None,
+        kernel_launches=sum(e.count for e in gpu),
+        top_kernels=[dict(name=e.key[:80], calls=e.count,
+                          device_ms=e.self_device_time_total / 1e3)
+                     for e in top])
+
+
+def phase_lm_serve(torch):
+    """`repro_torch.launch.serve.main` for both configurations at full width
+    and depth, twice each (the same tokens), then the decode cache's
+    hand-over: a prefill over prompt + first generated token against the
+    first decode step, with that prefill traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import (init_cache, init_model,
+                                                prefill, serve_step)
+
+    runs = {}
+    for arch, kname in ((LM_DENSE, "flash_attention"),
+                        (LM_RWKV, "rwkv6_scan")):
+        cfg = get_config(arch)
+        want = cfg.n_layers         # one launch per layer per prefill
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        gen, counts, _, wall = counted(
+            torch, lambda: serve.main(serve_argv(arch), stats=stats))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        last = stats.pop("prefill_last_logits")
+        finite = bool(torch.isfinite(last).all())
+        del last
+        gen2 = serve.main(serve_argv(arch))
+        same = torch.equal(gen, gen2)
+        run = dict(arch=arch, dtype=cfg.dtype, layers=cfg.n_layers,
+                   d_model=cfg.d_model, batch=LM_BATCH, prompt=LM_PROMPT,
+                   gen=LM_GEN, wall_s=wall, peak_memory_gb=peak_gb,
+                   logits_finite=finite, same_tokens_twice=same,
+                   launches=counts, sample=gen[0, :12].tolist(), **stats)
+        torch.cuda.empty_cache()
+
+        # hand-over: prefill(prompt + t0)[-1] against decode(t0) at P
+        model = init_model(cfg, LM_SEED, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(LM_SEED + 7)
+        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                             generator=g, device="cuda")
+        cache = init_cache(cfg, LM_BATCH, LM_PROMPT + 1, "cuda")
+        (logits, cache), trace = trace_call(
+            torch, lambda: prefill(model, cfg, {"tokens": toks}, cache))
+        t0 = logits[:, -1].argmax(-1)
+        del logits
+        (dec, cache), trace_dec = trace_call(
+            torch, lambda: serve_step(model, cfg, cache, t0, LM_PROMPT))
+        del cache
+        full, _ = prefill(model, cfg,
+                          {"tokens": torch.cat([toks, t0[:, None]], 1)},
+                          init_cache(cfg, LM_BATCH, LM_PROMPT + 1, "cuda"))
+        ref = full[:, -1]
+        del full
+        gap = float((dec - ref).abs().max())
+        scale = float(ref.abs().max())
+        run.update(handover_max_abs=gap, handover_logit_scale=scale,
+                   handover_tol=LM_HANDOVER_TOL,
+                   handover_same_argmax=float(
+                       (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+                   prefill_profile=trace, decode_step_profile=trace_dec)
+        del model, dec, ref
+        torch.cuda.empty_cache()
+        record("lm_serve", **run)
+        runs[arch] = run
+        check(gen.shape == (LM_BATCH, LM_GEN), f"{arch}: generated "
+                                                f"{tuple(gen.shape)}")
+        check(finite, f"{arch}: non-finite prefill logits")
+        check(same, f"{arch}: two runs gave different tokens")
+        check(stats["prefill_launches"][kname] == want,
+              f"{arch}: {stats['prefill_launches'][kname]} {kname} launches "
+              f"in the prefill (want {want})")
+        check(not any(stats["decode_launches"].values()),
+              f"{arch}: kernel launches in decode {stats['decode_launches']}")
+        check(counts[kname] == want, f"{arch}: {counts[kname]} {kname} "
+                                     f"launches in the run (want {want})")
+        check(gap <= LM_HANDOVER_TOL * scale,
+              f"{arch}: decode after prefill differs from the longer prefill "
+              f"by {gap:.3g} > {LM_HANDOVER_TOL:g} x {scale:.3g}")
+    return runs
+
+
+def phase_lm_card_vs_cpu(torch):
+    """The reduced configurations in float32: the same weights and tokens on
+    the card (the kernels) and on the CPU (their plain versions); prefill
+    logits and four decode steps' logits, each step fed the CPU's greedy
+    token."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.transformer import (init_cache, init_model,
+                                                prefill, serve_step)
+
+    rows = []
+    B, P, steps = 2, 40, 4      # P is not a multiple of the rwkv chunk (16)
+    for arch, kw in ((LM_DENSE, dict(kv_heads=2)), (LM_RWKV, {})):
+        cfg = get_config(arch).reduced().replace(dtype="float32", **kw)
+        toks = torch.randint(0, cfg.vocab_size, (B, P),
+                             generator=torch.Generator().manual_seed(9))
+        out, fed = {}, []
+        for dev in ("cpu", "cuda"):
+            model = init_model(cfg, LM_SEED, "cpu").to(dev)
+            before = kops.launch_counts()
+            cache = init_cache(cfg, B, P + steps, dev)
+            logits, cache = prefill(model, cfg, {"tokens": toks.to(dev)},
+                                    cache)
+            after = kops.launch_counts()
+            seq = [logits.cpu()]
+            for i in range(steps):
+                if dev == "cpu":
+                    fed.append(seq[-1][:, -1].argmax(-1) if i == 0
+                               else seq[-1].argmax(-1))
+                d, cache = serve_step(model, cfg, cache, fed[i].to(dev),
+                                      P + i)
+                seq.append(d.cpu())
+            out[dev] = (seq, {k: after[k] - before[k] for k in after})
+        (cpu, cpu_n), (card, card_n) = out["cpu"], out["cuda"]
+        gaps = [float((a - b).abs().max()) for a, b in zip(cpu, card)]
+        same = all(torch.equal(a.argmax(-1), b.argmax(-1))
+                   for a, b in zip(cpu, card))
+        rows.append(dict(arch=arch, reduced=True, dtype="float32",
+                         kv_heads=cfg.kv_heads, prompt=P, decode_steps=steps,
+                         prefill_max_abs=gaps[0], decode_max_abs=gaps[1:],
+                         tol=LM_CARD_CPU_TOL, same_argmax=same,
+                         card_prefill_launches=card_n,
+                         cpu_prefill_launches=cpu_n))
+        check(max(gaps) <= LM_CARD_CPU_TOL and same,
+              f"{arch} reduced: card vs CPU logits differ by {max(gaps):.3g}"
+              f" (tol {LM_CARD_CPU_TOL:g}), same argmax {same}")
+        check(sum(card_n.values()) == cfg.n_layers
+              and not any(cpu_n.values()),
+              f"{arch} reduced: kernel launches card {card_n}, cpu {cpu_n}")
+    record("lm_card_vs_cpu", cases=rows)
 
 if __name__ == "__main__":
     try:

@@ -14,10 +14,12 @@ Algorithm 1 "jong") and any concave accuracy model, for one cell and for
 a stacked (C, N) fleet, which runs every cell in one batch; the
 deadline-constrained variant (`Problem.deadline`, scalar or per cell);
 the paper-literal Theorem-2 SP2 solve (`core.sp2.solve_sp2_v2_thm2`) and
-the paper's baselines (`core.baselines`). Two hand-written CUDA kernels
-carry the dual sweeps, SP1's `sp1_lambda_sum` (`kernels/csrc/sp1_sweep.cu`)
-and Theorem 2's `waterfill_gprime` (`kernels/csrc/waterfill.cu`), built
-with nvcc at first use. Entry points build on CUDA unless the caller asks
+the paper's baselines (`core.baselines`); and LM serving
+(`launch.serve`, `models`, `configs`) for dense GQA and RWKV6 models.
+Four hand-written CUDA kernels, built with nvcc at first use: the dual
+sweeps of SP1 (`sp1_lambda_sum`, `kernels/csrc/sp1_sweep.cu`) and of
+Theorem 2 (`waterfill_gprime`, `kernels/csrc/waterfill.cu`), and the
+prefill's attention (`flash_attention`) and RWKV6 scan (`rwkv6_scan`). Entry points build on CUDA unless the caller asks
 for `device="cpu"`; `solve` runs on the device of the system's tensors.
 The module layout mirrors `repro` file for file; this package imports
 neither JAX nor `repro`.

@@ -1,8 +1,10 @@
-"""Bring `repro`'s systems and allocations over to the port.
+"""Bring `repro`'s systems, allocations and model parameters over to the port.
 
 The caller hands over numpy arrays (`np.asarray` of each `repro` leaf, done
 on the `repro` side); this module imports nothing of `repro`. A stacked
-`repro` system has (C,) per-cell scalars, which become (C, 1) here.
+`repro` system has (C,) per-cell scalars, which become (C, 1) here; a
+model's parameters, stacked over layer periods there, are unstacked into
+one module per period.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.types import (ALLOC_FIELDS, SYS_ARRAYS, SYS_SCALARS, Allocation,
                          SystemParams, resolve_device)
 
@@ -49,3 +52,59 @@ def allocation_from_numpy(leaves: Mapping[str, np.ndarray], device=None,
     return Allocation(**{k: None if leaves.get(k) is None
                          else _tensor(leaves[k], dtype, dev)
                          for k in ALLOC_FIELDS})
+
+
+def _leaf(tree: Mapping, path: Sequence[str]) -> np.ndarray:
+    node = tree
+    for part in path:
+        if not isinstance(node, Mapping) or part not in node:
+            raise KeyError(f"model_params_from_numpy: no leaf "
+                           f"{'/'.join(path)} in the parameter tree")
+        node = node[part]
+    return node
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1
+
+
+def model_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
+                            dtype: Optional[torch.dtype] = None):
+    """A `models.transformer.Model` of `cfg` holding the parameters of a
+    `repro` parameter tree, handed over as nested dicts of numpy arrays
+    (the reference's `init_model` layout: "embed", "final_norm", optional
+    "lm_head", and "layers" with every leaf stacked over periods on axis
+    0). Port parameter `layers.i.<slot>.<...>.<leaf>` takes
+    `tree["layers"][<slot>]...[<leaf>][i]`; every other parameter takes the
+    leaf of the same dotted path. bfloat16 leaves (ml_dtypes) are read
+    through float32. `dtype` None keeps each parameter's own dtype (the
+    config's for weights, float32 for norms, decays and mixes)."""
+    from .models.transformer import init_model
+
+    model = init_model(cfg, 0, device)
+    used = 0
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "layers":
+                arr = _leaf(tree, ["layers", *parts[2:]])[int(parts[1])]
+            else:
+                arr = _leaf(tree, parts)
+            arr = np.asarray(arr)
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"model_params_from_numpy: {name} has shape "
+                                 f"{tuple(param.shape)}, the tree's leaf "
+                                 f"{tuple(arr.shape)}")
+            dt = param.dtype if dtype is None else dtype
+            param.data = torch.tensor(arr).to(device=param.device, dtype=dt)
+            used += 1
+    expect = _count_leaves({k: v for k, v in tree.items() if k != "layers"}) \
+        + _count_leaves(tree.get("layers", {})) * cfg.n_periods
+    if used != expect:
+        raise ValueError(f"model_params_from_numpy: the tree holds {expect} "
+                         f"per-layer leaves, the port's model {used}")
+    return model

@@ -6,8 +6,12 @@ plain PyTorch version. There is no switch and no fallback between them.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
+from . import flash_attention as _flash
+from . import rwkv6_scan as _rwkv
 from . import sp1_sweep, waterfill
 
 Tensor = torch.Tensor
@@ -35,3 +39,37 @@ def waterfill_gprime(mu: Tensor, j: Tensor, rmin: Tensor,
     if mu.device.type == "cpu":
         return waterfill.waterfill_gprime_ref(mu, j, rmin, B_total)
     raise ValueError(f"waterfill_gprime: no kernel for device {mu.device}")
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> Tensor:
+    """GQA attention (used by `models.attention`'s prefill): q (B, H, S, hd),
+    k (B, KV, T, hd), v (B, KV, T, vd) -> (B, H, S, vd), in q's dtype."""
+    if q.device.type == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+    if q.device.type == "cpu":
+        return _flash.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window, scale=scale)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def rwkv6_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, *,
+               chunk: int = 64) -> Tuple[Tensor, Tensor]:
+    """Chunked WKV6 from a zero state (used by `models.ssm`'s prefill):
+    r, k, v, logw (B, T, H, K), u (H, K) -> (o (B, T, H, K),
+    S_end (B, H, K, K)), float32."""
+    if r.device.type == "cuda":
+        return _rwkv.rwkv6_scan(r, k, v, logw, u, chunk=chunk)
+    if r.device.type == "cpu":
+        return _rwkv.rwkv6_scan_ref(r, k, v, logw, u, chunk=chunk)
+    raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
+
+
+def launch_counts() -> dict:
+    """Launches of every kernel so far, by name."""
+    return {"sp1_lambda_sum": sp1_sweep.sp1_lambda_sum.launches,
+            "waterfill_gprime": waterfill.waterfill_gprime.launches,
+            "flash_attention": _flash.flash_attention.launches,
+            "rwkv6_scan": _rwkv.rwkv6_scan.launches}

@@ -202,3 +202,168 @@ def test_deadline_solve_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(res.objective.cpu().numpy(),
                                cpu.objective.numpy(), rtol=1e-8)
     assert torch.equal(res.iters.cpu(), cpu.iters)
+
+
+def flash_inputs(device, dtype, B, H, KV, S, T, hd, vd=None, seed=0):
+    rng = np.random.default_rng(seed)
+    vd = hd if vd is None else vd
+    # unit-variance q and k: scores of unit spread, so the softmax is far
+    # from uniform and |o| is not held small by averaging
+    q = rng.standard_normal((B, H, S, hd))
+    k = rng.standard_normal((B, KV, T, hd))
+    v = rng.standard_normal((B, KV, T, vd))
+    return tuple(torch.tensor(x, dtype=torch.float32).to(device=device,
+                                                         dtype=dtype)
+                 for x in (q, k, v))
+
+
+def flash_spread(q, k, v, causal, window):
+    """sqrt(sum_t p_st^2 v_t^2) per output element, P the plain version's
+    softmax (default scale)."""
+    G, S, T = q.shape[1] // k.shape[1], q.shape[2], k.shape[2]
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    hidden = (kpos > qpos) if causal else torch.zeros_like(kpos > qpos)
+    if window is not None:
+        hidden = hidden | (kpos <= qpos - window)
+    kh = k.float().repeat_interleave(G, 1)
+    vh = v.float().repeat_interleave(G, 1)
+    sc = q.float() @ kh.transpose(-1, -2) * q.shape[-1] ** -0.5
+    p = torch.softmax(sc.masked_fill(hidden, -1e30), -1)
+    return ((p * p) @ (vh * vh)).sqrt()
+
+
+# the shapes of tests/test_kernels.py (MHA, GQA 2:1, MQA) with and without a
+# 128-key window, a ragged causal S, a non-causal T != S, and vd != hd
+FLASH_CASES = [
+    (1, 2, 2, 128, 128, 64, None, True, None),
+    (2, 4, 2, 256, 256, 64, None, True, None),
+    (1, 8, 1, 128, 128, 128, None, True, None),
+    (2, 4, 2, 256, 256, 64, None, True, 128),
+    (1, 8, 1, 200, 200, 128, None, True, 128),
+    (1, 2, 2, 128, 256, 64, None, False, None),
+    (2, 4, 2, 77, 77, 32, None, True, None),
+    (1, 3, 1, 70, 130, 96, 64, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B, H, KV, S, T, hd, vd, causal, window",
+                         FLASH_CASES)
+def test_flash_attention_matches_plain_version(cuda, dtype, B, H, KV, S, T,
+                                               hd, vd, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(cuda, dtype, B, H, KV, S, T, hd, vd)
+    launches = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    plain = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 2
+    assert out.dtype == dtype and out.shape == plain.shape
+    assert torch.equal(out, again)
+    # float32 throughout in both: 2e-5 of |plain| + 2e-6. The 16-bit kernel
+    # rounds P to the input type (unit roundoff u) before P V, the plain
+    # version keeps it in float32: test_kernels.py's bf16 tolerance of
+    # |plain| + 4 u sqrt(sum_t p_t^2 v_t^2) (that rounding's error) + 1e-4
+    err = (out.float() - plain.float()).abs()
+    if dtype == torch.float32:
+        allowed = 2e-5 * plain.float().abs() + 2e-6
+    else:
+        u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
+        allowed = 2e-2 * plain.float().abs() + 1e-4 \
+            + 4 * u * flash_spread(q, k, v, causal, window)
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_strided_views(cuda):
+    """The model hands over (B, S, H, hd) transposed to (B, H, S, hd)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(cuda, torch.bfloat16, 2, 4, 2, 96, 96, 64)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    assert not qt.is_contiguous()
+    assert torch.equal(fa.flash_attention(qt, kt, vt),
+                       fa.flash_attention(q, k, v))
+    # rows of 66 elements: not 16-byte aligned, so the tiles load element
+    # by element instead of by 16-byte copies; the arithmetic is the same
+    qp, kp, vp = (torch.zeros(*x.shape[:3], 66, dtype=x.dtype,
+                              device=x.device) for x in (q, k, v))
+    for dst, src in ((qp, q), (kp, k), (vp, v)):
+        dst[..., :64] = src
+    assert torch.equal(fa.flash_attention(qp[..., :64], kp[..., :64],
+                                          vp[..., :64]),
+                       fa.flash_attention(q, k, v))
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :1].expand(2, 3, 96, 64), v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.cpu(), k, v)
+    # 16-bit inputs run on the tensor cores only: hd % 16 == 0, even vd <= 128
+    q24, k24, v24 = flash_inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 24)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q24, k24, v24)
+    q64, k64, v160 = flash_inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 64,
+                                  160)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q64, k64, v160)
+    # float32 takes both shapes
+    fa.flash_attention(q24.float(), k24.float(), v24.float())
+    fa.flash_attention(q64.float(), k64.float(), v160.float())
+
+
+def rwkv_inputs(device, B, T, H, K, strong=False, seed=2):
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((B, T, H, K)) * 0.5
+    k = rng.standard_normal((B, T, H, K)) * 0.5
+    v = rng.standard_normal((B, T, H, K))
+    logw = np.full((B, T, H, K), -8.0) if strong \
+        else -np.exp(rng.standard_normal((B, T, H, K)) * 0.5 - 0.5)
+    u = rng.standard_normal((H, K)) * 0.3
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+                 for x in (r, k, v, logw, u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, T, H, K, chunk, strong", [
+    (1, 64, 2, 32, 32, False),
+    (2, 128, 4, 64, 64, False),
+    (1, 128, 2, 32, 64, True),      # log w = -8: near-total forgetting
+    (2, 100, 3, 32, 16, False),     # ragged T
+    (1, 200, 2, 64, 64, False),
+])
+def test_rwkv6_scan_matches_plain_version(cuda, B, T, H, K, chunk, strong):
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    xs = rwkv_inputs(cuda, B, T, H, K, strong)
+    launches = rw.rwkv6_scan.launches
+    o, S = rw.rwkv6_scan(*xs, chunk=chunk)
+    o2, S2 = rw.rwkv6_scan(*xs, chunk=chunk)
+    po, pS = rw.rwkv6_scan_ref(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rw.rwkv6_scan.launches == launches + 2
+    assert torch.equal(o, o2) and torch.equal(S, S2)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(S).all())
+    torch.testing.assert_close(o, po, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(S, pS, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_rejects_bad_inputs(cuda):
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    r, k, v, lw, u = rwkv_inputs(cuda, 1, 64, 2, 32)
+    with pytest.raises(TypeError):
+        rw.rwkv6_scan(r.double(), k, v, lw, u)
+    with pytest.raises(ValueError):
+        rw.rwkv6_scan(r, k, v, lw, u, chunk=48)
+    with pytest.raises(ValueError):
+        rw.rwkv6_scan(r, k[:, :32], v, lw, u)
+    with pytest.raises(ValueError):
+        rw.rwkv6_scan(r.cpu(), k, v, lw, u)

@@ -20,7 +20,9 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.interop, "
             "repro_torch.core.baselines, repro_torch.kernels.ops, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.configs, "
+            "repro_torch.models.transformer, repro_torch.launch.serve, "
+            "repro_torch.launch.steps; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); print(bad); "
             "sys.exit(bool(bad))")
@@ -62,3 +64,25 @@ def test_interop_reshapes_stacked_scalars():
     assert s.cells == 3 and s.p_max.shape == (3, 1)
     assert s.gain.dtype == s.p_max.dtype == torch.float32
     assert s.active.dtype == torch.bool
+
+
+def test_serve_needs_cuda_unless_asked_for_the_cpu(monkeypatch, capsys):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--arch", "rwkv6-1.6b", "--reduced", "--batch", "1",
+            "--prompt-len", "4", "--gen", "2"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(argv)
+    assert serve.main(argv + ["--device", "cpu"]).shape == (1, 2)
+
+
+def test_port_calls_no_library_attention_or_compiler():
+    """The port's kernels are its own: no SDPA, cuDNN or torch.compile."""
+    banned = ("scaled_dot_product_attention", "torch.compile", "cudnn",
+              "flash_attn")
+    pkg = SRC / "repro_torch"
+    hits = [f"{p.relative_to(pkg)}: {b}"
+            for p in sorted(pkg.rglob("*")) if p.suffix in (".py", ".cu")
+            for b in banned if b in p.read_text()]
+    assert not hits, hits
