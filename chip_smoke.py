@@ -13,9 +13,9 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
   2. holds each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at ragged and edge-case ones (float32 and
      float64 for the solver kernels, float32 and bf16 for attention,
-     float32 for RWKV6 with its final state), checks that two launches on
-     the same inputs agree bitwise and that kernel and plain sums pick the
-     same bracket;
+     float32 for RWKV6 and the Mamba scan with their final states), checks
+     that two launches on the same inputs agree bitwise and that kernel
+     and plain sums pick the same bracket;
   3. drives the main paths through the port's entry points at full width,
      each with every kernel's launch count set to 0 just before and read
      just after:
@@ -30,11 +30,13 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          cell's deadline 1.2 x its free-deadline total time;
        - LM serving through `repro_torch.launch.serve.main` for
          internlm2-20b (dense GQA) and rwkv6-1.6b (RWKV6) at full width and
-         depth, bf16, batch 4, 2048-token prompts, 32 greedy tokens: one
-         flash_attention / rwkv6_scan launch per layer in the prefill, none
-         in decode; two runs give the same tokens, and a prefill over the
-         prompt plus the first token matches the first decode step (the
-         cache hand-over);
+         depth, and jamba-1.5-large-398b (hybrid Mamba + MoE) at full width
+         cut to its first 5 layers (mamba, mamba_moe, mamba, mamba_moe,
+         attn), bf16, batch 4, 2048-token prompts, 32 greedy tokens: one
+         flash_attention / rwkv6_scan / mamba_scan launch per attention /
+         RWKV / Mamba layer in the prefill, none in decode; two runs give
+         the same tokens, and a prefill over the prompt plus the first
+         token matches the first decode step (the cache hand-over);
      and checks that every output is finite and feasible;
   4. solves on the card and on the CPU (where the plain versions run) in
      float64 and compares them: the paper cell and 4 fleet cells (the
@@ -43,7 +45,8 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      SP1 "bisect", with SP2 "jong" (cut to 3 BCD x 5 Algorithm-1
      iterations) and with the log accuracy model, and 4 fleet cells under
      per-cell deadlines; and the reduced LMs in float32 (prefill and four
-     decode steps);
+     decode steps): internlm2-20b, rwkv6-1.6b, jamba-1.5-large-398b and
+     mixtral-8x7b;
   5. times the warm fleet and deadline-fleet solves (median of 3) and each
      kernel per launch (CUDA events) beside its bound, its plain version
      and, for attention, scaled_dot_product_attention (timed only);
@@ -91,9 +94,15 @@ DEADLINE_SLACK = 1.2
 # reference's defaults are 20 x 30) to stay inside the run's time limit.
 JONG_SPEC = dict(max_iters=3, sp2_method="jong", sp2_iters=5)
 
-# The LM serving path: both configurations at full width and depth, bf16,
-# batch 4, 2048-token random prompts, 32 greedy tokens, weights from a seed.
-LM_DENSE, LM_RWKV = "internlm2-20b", "rwkv6-1.6b"
+# The LM serving path: internlm2-20b and rwkv6-1.6b at full width and
+# depth, jamba-1.5-large-398b at full width cut to its first 5 of 72 layers
+# (every layer kind of the model; 23.5 B parameters, 47 GB in bf16, where
+# one 8-layer period would not fit the card), bf16, batch 4, 2048-token
+# random prompts, 32 greedy tokens, weights from a seed.
+LM_DENSE, LM_RWKV, LM_HYBRID = "internlm2-20b", "rwkv6-1.6b", \
+    "jamba-1.5-large-398b"
+LM_HYBRID_LAYERS = 5
+LM_MOE = "mixtral-8x7b"     # card vs CPU at the reduced size only
 LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 4, 2048, 32, 0
 # Last-position logits of a prefill over prompt + first token against the
 # first decode step's, relative to the largest logit: bf16 rounds the two
@@ -114,12 +123,19 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_ATOL = {"float32": 2e-6, "bfloat16": 1e-4}
 FLASH_P_ROUNDOFF = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 RWKV_TOL = 1e-4
+# mamba_scan vs plain, y and the final state: |kernel - plain| <= tol (1 +
+# |plain|). Both run the same float32 recurrence; the kernel fuses a h + u
+# and sums over n in another order, ~1e-7 relative a step.
+MAMBA_TOL = 1e-4
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): HBM3
 # bandwidth, the FP32 / FP64 rates outside the tensor cores, and the bf16
 # tensor-core rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+# exponentials on the special-function units: 16 per SM a clock (Hopper),
+# 132 SMs at the 1.98 GHz boost clock
+SFU_EXP_S = 16 * 132 * 1.98e9
 
 # Floating-point operations of one lambda_n(T) evaluation in
 # lambda_of_T_linear, counting each add, multiply, divide, compare/select,
@@ -204,14 +220,16 @@ def main():
     kernels = [phase("sp1_kernel", phase_sp1_kernel),
                phase("waterfill_kernel", phase_waterfill_kernel),
                phase("flash_kernel", phase_flash_kernel),
-               phase("rwkv_kernel", phase_rwkv_kernel)]
+               phase("rwkv_kernel", phase_rwkv_kernel),
+               phase("mamba_kernel", phase_mamba_kernel)]
     fleet_run = phase("main_path", phase_main_path)
     kernels[0]["launches"] = fleet_run["launches"]["sp1_lambda_sum"]
     region_run = phase("region_sp2", phase_region_sp2)
     kernels[1]["launches"] = region_run["launches"]["waterfill_gprime"]
     serve_runs = phase("lm_serve", phase_lm_serve)
-    kernels[2]["launches"] = serve_runs[LM_DENSE]["launches"]["flash_attention"]
-    kernels[3]["launches"] = serve_runs[LM_RWKV]["launches"]["rwkv6_scan"]
+    for k in kernels[2:]:
+        k["launches"] = sum(r["launches"][k["name"]]
+                            for r in serve_runs.values())
     phase("deadline_fleet", phase_deadline_fleet)
     phase("card_vs_cpu", phase_card_vs_cpu)
     phase("paper_paths", phase_paper_paths)
@@ -524,13 +542,14 @@ def counted(torch, fn):
     0 just before and read just after. Returns (result, {kernel: launches},
     host reads, wall seconds)."""
     from repro_torch.core.loops import while_cells
-    from repro_torch.kernels import (flash_attention, rwkv6_scan, sp1_sweep,
-                                     waterfill)
+    from repro_torch.kernels import (flash_attention, mamba_scan, rwkv6_scan,
+                                     sp1_sweep, waterfill)
 
     kernels = {"sp1_lambda_sum": sp1_sweep.sp1_lambda_sum,
                "waterfill_gprime": waterfill.waterfill_gprime,
                "flash_attention": flash_attention.flash_attention,
-               "rwkv6_scan": rwkv6_scan.rwkv6_scan}
+               "rwkv6_scan": rwkv6_scan.rwkv6_scan,
+               "mamba_scan": mamba_scan.mamba_scan}
     for k in kernels.values():
         k.launches = 0
     while_cells.host_reads = 0
@@ -918,14 +937,15 @@ def phase_times(torch, kernels):
 
     kernels[2].update(flash_time(torch))
     kernels[3].update(rwkv_time(torch))
+    kernels[4].update(mamba_time(torch))
 
 
 def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
-                   dtype, reps, plain_reps):
+                   dtype, reps, plain_reps, **extra):
     """ms per launch of `fn` (CUDA events; its timing launches are taken
     off `counter.launches`), of its plain version and of the library call,
     and the bound: the larger of `moved` bytes at HBM peak and `ops` at
-    `dtype`'s peak."""
+    `dtype`'s peak. `extra` goes into the record only."""
     launches = counter.launches
     ms = event_ms(torch, fn, reps)
     counter.launches = launches
@@ -937,7 +957,7 @@ def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                  library_ms=library_ms)
     record("kernel_times", kernel=name, dtype=dtype, **times, bytes=moved,
-           ops=ops, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
+           ops=ops, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, **extra)
     return times
 
 
@@ -952,7 +972,7 @@ def flash_time(torch):
 
     from repro_torch.kernels import flash_attention as fa
 
-    B, H, KV, S, T, hd, vd, _, _ = flash_cases()[-1]
+    B, H, KV, S, T, hd, vd, _, _ = flash_main_cases()[LM_DENSE]
     q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, torch.bfloat16)
     moved = sum(x.numel() * x.element_size() for x in (q, k, v)) \
         + B * H * S * vd * q.element_size()
@@ -987,6 +1007,28 @@ def rwkv_time(torch):
         moved, ops, "float32", 20, 3)
 
 
+def mamba_time(torch):
+    """mamba_scan at the jamba-1.5-large prefill shape (float32). Bytes: dt
+    and x read and y written (B T D each), Bt and Ct (B T N each) and A
+    (D N) read, the final state (B D N) written, once each. Operations, per
+    (b, t, d, n): the decay's product and exponential (2), the update
+    a h + (dt B) x (4) and the y term h C and its sum over n (2), float32
+    outside the tensor cores, an exponential counted as one operation. The
+    exponentials alone take B T D N / SFU_EXP_S on the special-function
+    units: recorded beside the bound, not in it. No PyTorch call computes
+    the selective scan."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    B, T, D, N, dt_max = mamba_cases()[-1]
+    xs = mamba_inputs(torch, B, T, D, N, dt_max)
+    ops = 8 * B * T * D * N
+    moved = 4 * (3 * B * T * D + 2 * B * T * N + D * N + B * D * N)
+    return lm_kernel_time(
+        torch, "mamba_scan", ms.mamba_scan, lambda: ms.mamba_scan(*xs),
+        lambda: ms.mamba_scan_ref(*xs), None, moved, ops, "float32", 20, 2,
+        shape=[B, T, D, N], exp_sfu_ms=B * T * D * N / SFU_EXP_S * 1e3)
+
+
 def trace(torch, label, problem, spec):
     """One solve under torch.profiler (`trace_call`), with its launch and
     host-read counts. Tracing slows the host, so the traced wall time is
@@ -1013,10 +1055,26 @@ def phase_profile(torch):
 # the LM serving path: flash_attention and rwkv6_scan
 # ---------------------------------------------------------------------------
 
+def flash_main_cases():
+    """The attention prefill of every served configuration that has
+    attention layers, at full width: {arch: (B, H, KV, S, T, hd, vd,
+    causal, window)}, from the configs themselves."""
+    from repro_torch.configs import get_config
+
+    cases = {}
+    for arch in (LM_DENSE, LM_HYBRID):
+        cfg = get_config(arch)
+        vd = cfg.v_head_dim or cfg.head_dim
+        cases[arch] = (LM_BATCH, cfg.n_heads, cfg.kv_heads, LM_PROMPT,
+                       LM_PROMPT, cfg.head_dim, vd, True, cfg.sliding_window)
+    return cases
+
+
 def flash_cases():
     """(B, H, KV, S, T, hd, vd, causal, window): tests/test_kernels.py's
     shapes (MHA, GQA 2:1, MQA, window 128, non-causal T != S), ragged ones,
-    and the internlm2-20b prefill (last, on the main path)."""
+    and the served prefills of flash_main_cases() (last, on the main
+    paths)."""
     return [(1, 2, 2, 128, 128, 64, 64, True, None),
             (2, 4, 2, 256, 256, 64, 64, True, None),
             (1, 8, 1, 128, 128, 128, 128, True, None),
@@ -1024,7 +1082,7 @@ def flash_cases():
             (1, 2, 2, 128, 256, 64, 64, False, None),
             (2, 4, 2, 77, 77, 32, 32, True, None),
             (1, 3, 1, 70, 130, 96, 64, False, None),
-            (LM_BATCH, 48, 8, LM_PROMPT, LM_PROMPT, 128, 128, True, None)]
+            *flash_main_cases().values()]
 
 
 def flash_inputs(torch, B, H, KV, S, T, hd, vd, dtype, seed=0):
@@ -1062,7 +1120,7 @@ def phase_flash_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
 
     rows, main_err = [], 0.0
-    cases = flash_cases()
+    cases, main = flash_cases(), set(flash_main_cases().values())
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         tol, atol = FLASH_TOL[name], FLASH_ATOL[name]
@@ -1091,8 +1149,8 @@ def phase_flash_kernel(torch):
                              max_err_over_allowed=float((err / allowed).max()),
                              finite=bool(torch.isfinite(out).all()),
                              repeatable=torch.equal(out, again)))
-            if i == len(cases) - 1 and dtype == torch.bfloat16:
-                main_err = float(err.max())
+            if cases[i] in main and dtype == torch.bfloat16:
+                main_err = max(main_err, float(err.max()))
             check(rows[-1]["finite"], f"flash_attention: non-finite ({where})")
             check(rows[-1]["repeatable"],
                   f"flash_attention: two launches differ ({where})")
@@ -1169,10 +1227,117 @@ def phase_rwkv_kernel(torch):
                 launches=None, max_abs_err=main_err)
 
 
-def serve_argv(arch):
-    return ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
-            str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", str(LM_SEED),
-            "--device", "cuda"]
+def mamba_inputs(torch, B, T, D, N, dt_max=None, seed=4):
+    """dt = softplus(z - 1) (or uniform in [0.01, dt_max]), A = -(1..N) in
+    every channel (the model's -exp(a_log)), and Bt, Ct as the two halves
+    of one (B, T, 2N) tensor: the strided views the model passes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, T, D)
+    dt = torch.nn.functional.softplus(
+        torch.randn(shape, generator=gen, device="cuda") - 1) \
+        if dt_max is None else 0.01 + (dt_max - 0.01) * torch.rand(
+            shape, generator=gen, device="cuda")
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device="cuda").expand(D, N).contiguous()
+    bc = torch.randn((B, T, 2 * N), generator=gen, device="cuda") * 0.5
+    x = torch.randn(shape, generator=gen, device="cuda")
+    Bt, Ct = bc.chunk(2, -1)
+    return dt, A, Bt, Ct, x
+
+
+def mamba_cases():
+    """(B, T, D, N, dt_max): tests/test_kernels.py's shapes, ragged T and D
+    (no multiple of the 64-step tile or the 16-channel block), one step,
+    the strong decay (dt up to 5, dt A down to -80), and the
+    jamba-1.5-large prefill (last)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_HYBRID)
+    return [(1, 64, 128, 8, None), (2, 128, 256, 16, None),
+            (2, 100, 50, 16, None), (1, 37, 33, 8, None),
+            (1, 1, 16, 16, None), (1, 200, 64, 16, 5.0),
+            (2, 333, 1000, 16, 5.0),
+            (LM_BATCH, LM_PROMPT, cfg.d_inner, cfg.d_state, None)]
+
+
+def phase_mamba_kernel(torch):
+    """mamba_scan against its plain version on the card: y and the final
+    state, on strided Bt / Ct views (and bitwise the same on contiguous
+    copies)."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    rows, main_err = [], 0.0
+    cases = mamba_cases()
+    for i, (B, T, D, N, dt_max) in enumerate(cases):
+        dt, A, Bt, Ct, x = mamba_inputs(torch, B, T, D, N, dt_max)
+        y, h = ms.mamba_scan(dt, A, Bt, Ct, x)
+        y2, h2 = ms.mamba_scan(dt, A, Bt, Ct, x)
+        y3, h3 = ms.mamba_scan(dt, A, Bt.contiguous(), Ct.contiguous(), x)
+        py, ph = ms.mamba_scan_ref(dt, A, Bt, Ct, x)
+        torch.cuda.synchronize()
+        ey, eh = (y - py).abs(), (h - ph).abs()
+        excess = max(float((ey - MAMBA_TOL * py.abs()).max()),
+                     float((eh - MAMBA_TOL * ph.abs()).max()))
+        where = f"{(B, T, D, N)}, dt_max={dt_max}"
+        rows.append(dict(shape=[B, T, D, N], dt_max=dt_max, dtype="float32",
+                         min_dt_A=float((dt.amax() * A.amin())),
+                         max_abs_err_y=float(ey.max()),
+                         max_abs_err_state=float(eh.max()),
+                         max_abs_plain_y=float(py.abs().max()),
+                         tol=MAMBA_TOL,
+                         finite=bool(torch.isfinite(y).all()
+                                     and torch.isfinite(h).all()),
+                         repeatable=torch.equal(y, y2) and torch.equal(h, h2),
+                         strided_same=torch.equal(y, y3)
+                         and torch.equal(h, h3)))
+        if i == len(cases) - 1:
+            main_err = max(float(ey.max()), float(eh.max()))
+        check(rows[-1]["finite"], f"mamba_scan: non-finite ({where})")
+        check(rows[-1]["repeatable"],
+              f"mamba_scan: two launches differ ({where})")
+        check(rows[-1]["strided_same"],
+              f"mamba_scan: strided and contiguous Bt / Ct differ ({where})")
+        check(excess <= MAMBA_TOL, f"mamba_scan: |kernel - plain| exceeds "
+                                   f"{MAMBA_TOL:g} (1 + |plain|) ({where})")
+        del dt, A, Bt, Ct, x, y, h, y2, h2, y3, h3, py, ph, ey, eh
+    torch.cuda.empty_cache()
+    record("kernel_vs_plain", kernel="mamba_scan",
+           tolerance="|kernel - plain| <= tol (1 + |plain|), y and final "
+                     "state", cases=rows)
+    return dict(name="mamba_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan.py:51",
+                launches=None, max_abs_err=main_err)
+
+
+def lm_config(arch):
+    """The served configuration: jamba cut to its first LM_HYBRID_LAYERS
+    layers at full width, the others whole."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == LM_HYBRID:
+        cfg = cfg.replace(n_layers=LM_HYBRID_LAYERS,
+                          block_pattern=cfg.block_pattern[:LM_HYBRID_LAYERS])
+    return cfg
+
+
+def prefill_launches(cfg):
+    """The kernel launches of one prefill of `cfg`: one flash_attention,
+    mamba_scan or rwkv6_scan per attention, Mamba or RWKV layer; none of
+    the solver kernels."""
+    kinds = {"flash_attention": ("attn", "attn_moe"),
+             "mamba_scan": ("mamba", "mamba_moe"), "rwkv6_scan": ("rwkv",)}
+    want = {k: cfg.n_periods * sum(kind in ks for kind in cfg.block_pattern)
+            for k, ks in kinds.items()}
+    return dict(want, sp1_lambda_sum=0, waterfill_gprime=0)
+
+
+def serve_argv():
+    """serve.main's flags for the served traffic; the config goes in as
+    `cfg=`."""
+    return ["--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+            "--gen", str(LM_GEN), "--seed", str(LM_SEED), "--device", "cuda"]
 
 
 def trace_call(torch, fn):
@@ -1203,39 +1368,43 @@ def trace_call(torch, fn):
 
 
 def phase_lm_serve(torch):
-    """`repro_torch.launch.serve.main` for both configurations at full width
-    and depth, twice each (the same tokens), then the decode cache's
-    hand-over: a prefill over prompt + first generated token against the
-    first decode step, with that prefill traced."""
-    from repro_torch.configs import get_config
+    """`repro_torch.launch.serve.main` for the three configurations (jamba
+    cut to LM_HYBRID_LAYERS, the others whole), twice each (the same
+    tokens), then the decode cache's hand-over: a prefill over prompt +
+    first generated token against the first decode step, with that prefill
+    traced."""
     from repro_torch.launch import serve
     from repro_torch.models.transformer import (init_cache, init_model,
                                                 prefill, serve_step)
 
     runs = {}
-    for arch, kname in ((LM_DENSE, "flash_attention"),
-                        (LM_RWKV, "rwkv6_scan")):
-        cfg = get_config(arch)
-        want = cfg.n_layers         # one launch per layer per prefill
+    for arch in (LM_DENSE, LM_RWKV, LM_HYBRID):
+        cfg = lm_config(arch)
+        want = prefill_launches(cfg)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         stats = {}
         gen, counts, _, wall = counted(
-            torch, lambda: serve.main(serve_argv(arch), stats=stats))
+            torch, lambda: serve.main(serve_argv(), stats=stats, cfg=cfg))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         last = stats.pop("prefill_last_logits")
         finite = bool(torch.isfinite(last).all())
         del last
-        gen2 = serve.main(serve_argv(arch))
+        torch.cuda.empty_cache()
+        gen2 = serve.main(serve_argv(), cfg=cfg)
         same = torch.equal(gen, gen2)
         run = dict(arch=arch, dtype=cfg.dtype, layers=cfg.n_layers,
+                   block_pattern=list(cfg.block_pattern),
                    d_model=cfg.d_model, batch=LM_BATCH, prompt=LM_PROMPT,
                    gen=LM_GEN, wall_s=wall, peak_memory_gb=peak_gb,
-                   logits_finite=finite, same_tokens_twice=same,
-                   launches=counts, sample=gen[0, :12].tolist(), **stats)
+                   parameters=None, logits_finite=finite,
+                   same_tokens_twice=same, launches=counts,
+                   sample=gen[0, :12].tolist(), **stats)
         torch.cuda.empty_cache()
 
         # hand-over: prefill(prompt + t0)[-1] against decode(t0) at P
         model = init_model(cfg, LM_SEED, "cuda")
+        run["parameters"] = sum(p.numel() for p in model.parameters())
         g = torch.Generator(device="cuda").manual_seed(LM_SEED + 7)
         toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                              generator=g, device="cuda")
@@ -1267,13 +1436,13 @@ def phase_lm_serve(torch):
                                                 f"{tuple(gen.shape)}")
         check(finite, f"{arch}: non-finite prefill logits")
         check(same, f"{arch}: two runs gave different tokens")
-        check(stats["prefill_launches"][kname] == want,
-              f"{arch}: {stats['prefill_launches'][kname]} {kname} launches "
-              f"in the prefill (want {want})")
+        check(stats["prefill_launches"] == want,
+              f"{arch}: prefill launches {stats['prefill_launches']} "
+              f"(want {want})")
         check(not any(stats["decode_launches"].values()),
               f"{arch}: kernel launches in decode {stats['decode_launches']}")
-        check(counts[kname] == want, f"{arch}: {counts[kname]} {kname} "
-                                     f"launches in the run (want {want})")
+        check(counts == want, f"{arch}: launches in the run {counts} "
+                              f"(want {want})")
         check(gap <= LM_HANDOVER_TOL * scale,
               f"{arch}: decode after prefill differs from the longer prefill "
               f"by {gap:.3g} > {LM_HANDOVER_TOL:g} x {scale:.3g}")
@@ -1291,8 +1460,10 @@ def phase_lm_card_vs_cpu(torch):
                                                 prefill, serve_step)
 
     rows = []
-    B, P, steps = 2, 40, 4      # P is not a multiple of the rwkv chunk (16)
-    for arch, kw in ((LM_DENSE, dict(kv_heads=2)), (LM_RWKV, {})):
+    # P is a multiple of neither the rwkv chunk (16) nor the ssm chunk (32)
+    B, P, steps = 2, 40, 4
+    for arch, kw in ((LM_DENSE, dict(kv_heads=2)), (LM_RWKV, {}),
+                     (LM_HYBRID, dict(kv_heads=2)), (LM_MOE, {})):
         cfg = get_config(arch).reduced().replace(dtype="float32", **kw)
         toks = torch.randint(0, cfg.vocab_size, (B, P),
                              generator=torch.Generator().manual_seed(9))
@@ -1326,8 +1497,7 @@ def phase_lm_card_vs_cpu(torch):
         check(max(gaps) <= LM_CARD_CPU_TOL and same,
               f"{arch} reduced: card vs CPU logits differ by {max(gaps):.3g}"
               f" (tol {LM_CARD_CPU_TOL:g}), same argmax {same}")
-        check(sum(card_n.values()) == cfg.n_layers
-              and not any(cpu_n.values()),
+        check(card_n == prefill_launches(cfg) and not any(cpu_n.values()),
               f"{arch} reduced: kernel launches card {card_n}, cpu {cpu_n}")
     record("lm_card_vs_cpu", cases=rows)
 

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import flash_attention as _flash
+from . import mamba_scan as _mamba
 from . import rwkv6_scan as _rwkv
 from . import sp1_sweep, waterfill
 
@@ -67,9 +68,22 @@ def rwkv6_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, *,
     raise ValueError(f"rwkv6_scan: no kernel for device {r.device}")
 
 
+def mamba_scan(dt: Tensor, A: Tensor, Bt: Tensor, Ct: Tensor,
+               x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Selective scan from a zero state (used by `models.ssm`'s Mamba
+    prefill): dt, x (B, T, D), A (D, N), Bt, Ct (B, T, N) -> (y (B, T, D),
+    h_end (B, D, N)), float32."""
+    if x.device.type == "cuda":
+        return _mamba.mamba_scan(dt, A, Bt, Ct, x)
+    if x.device.type == "cpu":
+        return _mamba.mamba_scan_ref(dt, A, Bt, Ct, x)
+    raise ValueError(f"mamba_scan: no kernel for device {x.device}")
+
+
 def launch_counts() -> dict:
     """Launches of every kernel so far, by name."""
     return {"sp1_lambda_sum": sp1_sweep.sp1_lambda_sum.launches,
             "waterfill_gprime": waterfill.waterfill_gprime.launches,
             "flash_attention": _flash.flash_attention.launches,
-            "rwkv6_scan": _rwkv.rwkv6_scan.launches}
+            "rwkv6_scan": _rwkv.rwkv6_scan.launches,
+            "mamba_scan": _mamba.mamba_scan.launches}

@@ -8,9 +8,11 @@ Port of `repro/launch/serve.py`, on CUDA unless `--device cpu` is given:
         --reduced --device cpu
 
 Weights and prompts are drawn from `--seed` (there are no checkpoints).
-The prefill runs the flash-attention / rwkv6 kernels once per layer;
-decode is plain torch. Architectures with layer kinds the port does not
-run yet (MoE, MLA, Mamba, encoder-decoder, VLM) raise NotImplementedError.
+The prefill runs the flash-attention, mamba-scan or rwkv6 kernel once per
+attention, Mamba or RWKV layer; decode is plain torch. Dense GQA, MoE
+(mixtral, dbrx), hybrid Mamba + MoE (jamba) and RWKV6 configs run;
+MLA, encoder-decoder and VLM configs raise NotImplementedError. A caller
+may pass its own `ModelConfig` to `main(cfg=...)`, e.g. a depth cut.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..configs import get_config
+from ..configs.base import ModelConfig
 from ..core.types import resolve_device
 from ..kernels import ops as kops
 from ..models.transformer import (check_ported, init_cache, init_model,
@@ -33,13 +36,17 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def main(argv=None, stats: Optional[dict] = None) -> torch.Tensor:
+def main(argv=None, stats: Optional[dict] = None,
+         cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """Run the server once; returns the generated ids (B, gen). `stats`, if
     given, receives the prefill and decode seconds, the decode rate (the
     gen - 1 tokens a row of the decode loop over its wall time), the
-    prefill's last-position logits and the kernel launches of each phase."""
+    prefill's last-position logits and the kernel launches of each phase.
+    `cfg`, if given, is served in place of an `--arch` config, and the two
+    may not both be given (`--reduced` still applies)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mixtral-8x7b")
+    ap.add_argument("--arch", default=None,
+                    help="config name (default mixtral-8x7b)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -48,7 +55,11 @@ def main(argv=None, stats: Optional[dict] = None) -> torch.Tensor:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
+    if cfg is None:
+        cfg = get_config(args.arch or "mixtral-8x7b")
+    elif args.arch is not None:
+        raise ValueError(f"--arch {args.arch} and cfg={cfg.name} both given: "
+                         "pass one")
     if args.reduced:
         cfg = cfg.reduced()
     check_ported(cfg)

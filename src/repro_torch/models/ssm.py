@@ -1,17 +1,27 @@
-"""RWKV6 "Finch": WKV with data-dependent decay.
+"""State-space / linear-recurrence mixers: Mamba (selective scan, for Jamba)
+and RWKV6 "Finch" (WKV with data-dependent decay).
 
-Port of the RWKV6 parts of `repro/models/ssm.py`. The prefill's chunked
-WKV scan goes through `kernels.ops.rwkv6_scan` (the CUDA kernel on the card,
-its plain chunked version on the CPU), which also returns the final state
-for the decode cache; decode is the single-step recurrence in plain torch.
-Decays live in log space, and every in-chunk decay factor is
+Port of `repro/models/ssm.py`. Both prefills go through a kernel that also
+returns the final state for the decode cache: Mamba's selective scan
+through `kernels.ops.mamba_scan`, RWKV6's chunked WKV through
+`kernels.ops.rwkv6_scan` (the CUDA kernels on the card, their plain
+versions on the CPU). Decode is the single-step recurrence in plain torch.
+
+Mamba: the reference scans chunk by chunk, carrying the causal conv's tail
+and the state; the port computes the causal depthwise conv over the whole
+sequence in one pass (the same taps in the same order) and makes one scan
+call over the whole sequence, so any prompt length hands its state over to
+decode. dt, B, C, the state and the scan are float32; the conv tail is
+cached in the model dtype, as in the reference.
+
+RWKV6: decays live in log space, and every in-chunk decay factor is
 exp(clw'_t - clw_tau) <= 1. r, k, v and the decay are float32 in every mode,
 the WKV state is float32, and the token-shift states `x_tm` / `x_cm` are
-bfloat16 whatever the model's dtype, as in the reference. Mamba is not
-ported (ROADMAP.md, Queue 2 item 5).
+bfloat16 whatever the model's dtype, as in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -23,15 +33,120 @@ from .layers import const, normal
 Tensor = torch.Tensor
 
 
+# ===========================================================================
+# Mamba (selective SSM)
+# ===========================================================================
+
+class MambaCache(NamedTuple):
+    conv: Tensor      # (B, K_conv - 1, Di) last inputs of the causal conv
+    h: Tensor         # (B, Di, N) recurrent state, float32
+
+
+class Mamba(nn.Module):
+    """One Mamba mixer, named as the reference's `init_mamba` leaves, with
+    its distributions and scales."""
+
+    def __init__(self, gen: torch.Generator, d_model: int, d_inner: int,
+                 d_state: int = 16, d_conv: int = 4,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        dt_rank = max(d_model // 16, 1)
+        sd = (1.0 / d_model) ** 0.5
+        dev = gen.device
+        self.in_proj = normal(gen, (d_model, d_inner), sd, dtype)
+        self.gate_proj = normal(gen, (d_model, d_inner), sd, dtype)
+        self.conv_w = normal(gen, (d_conv, d_inner), 0.2, dtype)
+        self.conv_b = const((d_inner,), 0.0, dev, dtype)
+        self.a_log = nn.Parameter(torch.log(torch.arange(
+            1, d_state + 1, dtype=torch.float32, device=dev).expand(
+            d_inner, d_state).contiguous()), requires_grad=False)
+        self.d = const((d_inner,), 1.0, dev)
+        self.dt_w = normal(gen, (d_inner, dt_rank), sd, dtype)
+        self.dt_proj = normal(gen, (dt_rank, d_inner), dt_rank ** -0.5, dtype)
+        # softplus^-1(0.01), rounded once from float64
+        self.dt_bias = const((d_inner,), math.log(math.expm1(0.01)), dev)
+        self.bc_proj = normal(gen, (d_inner, 2 * d_state), sd, dtype)
+        self.out_proj = normal(gen, (d_inner, d_model),
+                               (1.0 / d_inner) ** 0.5, dtype)
+
+
+def init_mamba_cache(batch: int, d_inner: int, d_state: int = 16,
+                     d_conv: int = 4, dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> MambaCache:
+    return MambaCache(
+        conv=torch.zeros((batch, d_conv - 1, d_inner), dtype=dtype,
+                         device=device),
+        h=torch.zeros((batch, d_inner, d_state), dtype=torch.float32,
+                      device=device))
+
+
+def _dt_bc(p: Mamba, xc: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """dt = softplus(xc dt_w dt_proj + dt_bias) and B, C = split(xc bc_proj),
+    float32; B and C are views of one (..., 2N) tensor."""
+    dt = torch.nn.functional.softplus(
+        torch.matmul(torch.matmul(xc, p.dt_w), p.dt_proj) + p.dt_bias).float()
+    Bt, Ct = torch.matmul(xc, p.bc_proj).float().chunk(2, dim=-1)
+    return dt, Bt, Ct
+
+
+def mamba(p: Mamba, x: Tensor, *, mode: str = "train",
+          cache: Optional[MambaCache] = None
+          ) -> Tuple[Tensor, Optional[MambaCache]]:
+    """x (B, S, D) -> (out (B, S, D), cache'). "decode" takes S == 1 and a
+    cache; "prefill" with a cache returns the filled one (any S); "train"
+    returns None."""
+    B, S, D = x.shape
+    A = -torch.exp(p.a_log)                                 # (Di, N)
+    Kc = p.conv_w.shape[0]
+    silu = torch.nn.functional.silu
+    xin = torch.matmul(x, p.in_proj)
+    z = torch.matmul(x, p.gate_proj)
+
+    if mode == "decode":
+        if S != 1 or cache is None:
+            raise ValueError("mamba: decode takes one token and a cache")
+        conv_in = torch.cat([cache.conv, xin], dim=1)       # (B, K, Di)
+        xc = torch.einsum("bke,ke->be", conv_in[:, -Kc:], p.conv_w) \
+            + p.conv_b
+        xc = silu(xc)
+        dt, Bt, Ct = _dt_bc(p, xc)                          # (B,Di), (B,N)
+        xf = xc.float()
+        h = torch.exp(dt[..., None] * A) * cache.h \
+            + dt[..., None] * Bt[:, None, :] * xf[..., None]
+        y = torch.einsum("bdn,bn->bd", h, Ct) + p.d * xf
+        out = (y.to(x.dtype) * silu(z[:, 0]))[:, None]
+        return torch.matmul(out, p.out_proj), MambaCache(conv=conv_in[:, 1:],
+                                                        h=h)
+
+    # train / prefill: the causal depthwise conv over the whole sequence,
+    # taps summed in the reference's order, then one scan
+    xext = torch.cat([torch.zeros((B, Kc - 1, xin.shape[-1]), dtype=xin.dtype,
+                                  device=xin.device), xin], dim=1)
+    xconv = xext[:, :S] * p.conv_w[0]
+    for i in range(1, Kc):
+        xconv = xconv + xext[:, i:i + S] * p.conv_w[i]
+    xconv = silu(xconv + p.conv_b)
+    dt, Bt, Ct = _dt_bc(p, xconv)
+    xf = xconv.float()
+    y, h_end = kops.mamba_scan(dt, A, Bt, Ct, xf)
+    y = (y + p.d * xf).to(x.dtype)
+    out = torch.matmul(y * silu(z), p.out_proj)
+    new_cache = None
+    if mode == "prefill" and cache is not None:
+        # a copy, so the cache does not hold the whole padded sequence
+        new_cache = MambaCache(
+            conv=xext[:, xext.shape[1] - (Kc - 1):].clone(), h=h_end)
+    return out, new_cache
+
+
+# ===========================================================================
+# RWKV6 (Finch): WKV with data-dependent decay
+# ===========================================================================
+
 class RWKVCache(NamedTuple):
     state: Tensor     # (B, H, K, V) wkv state, float32
     x_tm: Tensor      # (B, D) previous token (time-mix shift), bfloat16
     x_cm: Tensor      # (B, D) previous token (channel-mix shift), bfloat16
-
-
-def mamba(*args, **kwargs):
-    raise NotImplementedError("mamba layers are not ported yet (ROADMAP.md, "
-                              "Queue 2 item 5: mamba_scan)")
 
 
 def _time_mix_params(m: nn.Module, gen: torch.Generator, d_model: int,

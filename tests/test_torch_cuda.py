@@ -367,3 +367,66 @@ def test_rwkv6_scan_rejects_bad_inputs(cuda):
         rw.rwkv6_scan(r, k[:, :32], v, lw, u)
     with pytest.raises(ValueError):
         rw.rwkv6_scan(r.cpu(), k, v, lw, u)
+
+
+def mamba_inputs(device, B, T, D, N, dt_max=None, seed=4):
+    """dt = softplus(z - 1) (or uniform up to dt_max), A = -(1..N) as the
+    model's a_log gives it, and Bt, Ct as the two halves of one (B, T, 2N)
+    tensor, the strided views the model passes."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, D)) - 1)) \
+        if dt_max is None else rng.uniform(0.01, dt_max, (B, T, D))
+    A = -np.broadcast_to(np.arange(1.0, N + 1), (D, N))
+    bc = rng.standard_normal((B, T, 2 * N)) * 0.5
+    x = rng.standard_normal((B, T, D))
+    dt, A, bc, x = (torch.tensor(np.ascontiguousarray(a),
+                                 dtype=torch.float32, device=device)
+                    for a in (dt, A, bc, x))
+    Bt, Ct = bc.chunk(2, -1)
+    return dt, A, Bt, Ct, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, T, D, N, dt_max", [
+    (1, 64, 128, 8, None),       # tests/test_kernels.py's shapes
+    (2, 128, 256, 16, None),
+    (2, 100, 50, 16, None),      # ragged T and D
+    (1, 37, 33, 8, None),
+    (2, 1, 16, 16, None),        # one step
+    (1, 200, 64, 16, 5.0),       # strong decay: dt A down to -80
+    (4, 300, 1000, 16, None),
+])
+def test_mamba_scan_matches_plain_version(cuda, B, T, D, N, dt_max):
+    from repro_torch.kernels import mamba_scan as ms
+
+    xs = mamba_inputs(cuda, B, T, D, N, dt_max)
+    launches = ms.mamba_scan.launches
+    y, h = ms.mamba_scan(*xs)
+    y2, h2 = ms.mamba_scan(*xs)
+    py, ph = ms.mamba_scan_ref(*xs)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == launches + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, py, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, ph, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_rejects_bad_inputs(cuda):
+    from repro_torch.kernels import mamba_scan as ms
+
+    dt, A, Bt, Ct, x = mamba_inputs(cuda, 1, 64, 32, 16)
+    with pytest.raises(TypeError):
+        ms.mamba_scan(dt.double(), A, Bt, Ct, x)
+    with pytest.raises(ValueError):               # N = 4 is not built
+        ms.mamba_scan(dt, A[:, :4].contiguous(), Bt[..., :4], Ct[..., :4], x)
+    with pytest.raises(ValueError):
+        ms.mamba_scan(dt.cpu(), A, Bt, Ct, x)
+    with pytest.raises(ValueError):               # T of dt and x differ
+        ms.mamba_scan(dt[:, :32], A, Bt, Ct, x)
+    with pytest.raises(ValueError):               # A is (N, D)
+        ms.mamba_scan(dt, A.t(), Bt, Ct, x)
+    with pytest.raises(ValueError):               # x's last dim strided
+        ms.mamba_scan(dt, A, Bt, Ct,
+                      x.transpose(1, 2).contiguous().transpose(1, 2))

@@ -160,7 +160,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     xs = [torch.tensor(x) for x in rwkv_inputs(1, 16, 2, 16)]
     with pytest.raises(ValueError, match="CUDA"):
         rw.rwkv6_scan(*xs, chunk=16)
+    from repro_torch.kernels import mamba_scan as ms
+
+    m = [torch.ones((1, 8, 16)), -torch.ones((16, 8)), torch.ones((1, 8, 8)),
+         torch.ones((1, 8, 8)), torch.ones((1, 8, 16))]
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.mamba_scan(*m)
     launches = tops.launch_counts()
     tops.flash_attention(q, k, v)
     tops.rwkv6_scan(*xs, chunk=16)
+    tops.mamba_scan(*m)
     assert tops.launch_counts() == launches

@@ -1,11 +1,15 @@
 """The port's LM serving path (`repro_torch.models`, `repro_torch.launch`)
 against the JAX package's (`repro.models.transformer`) on the CPU, in
 float32: reduced internlm2-20b (dense GQA, with kv_heads 2 so that both the
-group size and the KV head count exceed 1) and reduced rwkv6-1.6b. The
-`repro` parameters are carried over through
-`interop.model_params_from_numpy`; prefill logits and four decode steps'
-logits agree to 1e-4 with the same greedy tokens. The prompt length (20)
-is not a multiple of the reduced rwkv chunk (16).
+group size and the KV head count exceed 1), reduced rwkv6-1.6b, reduced
+jamba-1.5-large-398b (Mamba, MoE and attention layers; kv_heads 2) and
+reduced mixtral-8x7b (attention + MoE, sliding window). The `repro`
+parameters are carried over through `interop.model_params_from_numpy`;
+prefill logits and four decode steps' logits agree to 1e-4 with the same
+greedy tokens. The prompt length (20) is not a multiple of the reduced
+rwkv chunk (16); jamba's (32) is a multiple of its reduced ssm chunk,
+because the reference's prefill with a cache asserts it (the port's does
+not, `test_decode_cache_hands_over`).
 """
 import dataclasses
 
@@ -29,9 +33,13 @@ from repro_torch.launch import serve
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as tt
 
-# reduced configs, float32; internlm2's reduced kv_heads would be 1 (MQA)
-CASES = {"internlm2-20b": dict(kv_heads=2), "rwkv6-1.6b": {}}
+# reduced configs, float32; internlm2's and jamba's reduced kv_heads would
+# be 1 (MQA)
+CASES = {"internlm2-20b": dict(kv_heads=2), "rwkv6-1.6b": {},
+         "jamba-1.5-large-398b": dict(kv_heads=2), "mixtral-8x7b": {}}
 B, PROMPT, STEPS = 2, 20, 4
+# the reference's mamba prefill with a cache needs S % ssm_chunk == 0
+PROMPTS = {"jamba-1.5-large-398b": 32}
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -45,6 +53,7 @@ def configs(arch):
 def pair(request):
     """(JAX config, params), (port config, model) on the same weights."""
     cj, ct = configs(request.param)
+    assert not tt.unported(ct)
     params = jt.init_model(jax.random.PRNGKey(0), cj)
     tree = jax.tree_util.tree_map(np.asarray, params)
     return (cj, params), (ct, interop.model_params_from_numpy(
@@ -55,19 +64,20 @@ def pair(request):
 def runs(pair):
     """Prefill plus STEPS greedy decode steps in both packages."""
     (cj, params), (ct, model) = pair
-    toks = np.random.default_rng(0).integers(0, cj.vocab_size, (B, PROMPT))
-    cache_j = jt.init_cache(cj, B, PROMPT + STEPS)
+    P = PROMPTS.get(cj.name, PROMPT)
+    toks = np.random.default_rng(0).integers(0, cj.vocab_size, (B, P))
+    cache_j = jt.init_cache(cj, B, P + STEPS)
     lj, cache_j = jax.jit(lambda p, c, b: jt.prefill(p, cj, b, c))(
         params, cache_j, {"tokens": jnp.asarray(toks)})
-    cache_t = tt.init_cache(ct, B, PROMPT + STEPS, device="cpu")
+    cache_t = tt.init_cache(ct, B, P + STEPS, device="cpu")
     lt, cache_t = tt.prefill(model, ct, {"tokens": torch.tensor(toks)},
                              cache_t)
     step = jax.jit(lambda p, c, t, pos: jt.serve_step(p, cj, c, t, pos))
     tj, tk = jnp.argmax(lj[:, -1], -1), lt[:, -1].argmax(-1)
     dec = []
     for i in range(STEPS):
-        dj, cache_j = step(params, cache_j, tj, jnp.asarray(PROMPT + i))
-        dt, cache_t = tt.serve_step(model, ct, cache_t, tk, PROMPT + i)
+        dj, cache_j = step(params, cache_j, tj, jnp.asarray(P + i))
+        dt, cache_t = tt.serve_step(model, ct, cache_t, tk, P + i)
         dec.append((np.asarray(tj), tk.numpy(), np.asarray(dj), dt.numpy()))
         tj, tk = jnp.argmax(dj, -1), dt.argmax(-1)
     return np.asarray(lj), lt.numpy(), dec
@@ -123,6 +133,8 @@ def test_init_matches_reference_statistics(arch):
         got = ours[name].double().numpy()
         if ref.std() == 0:
             np.testing.assert_array_equal(got, ref)
+        elif keys[-1] == "a_log":     # log(1..N) in every channel
+            np.testing.assert_allclose(got, ref, rtol=1e-6)
         elif ref.size >= 1024:
             assert got.std() == pytest.approx(ref.std(), rel=0.1), name
             assert abs(got.mean()) < 4 * ref.std() / np.sqrt(ref.size)
@@ -130,7 +142,8 @@ def test_init_matches_reference_statistics(arch):
 
 def test_prefill_logits_match(runs):
     lj, lt, _ = runs
-    assert lt.shape == lj.shape == (B, PROMPT, lt.shape[-1])
+    assert lt.shape == lj.shape == (B, lj.shape[1], lt.shape[-1])
+    assert lj.shape[1] in (PROMPT, *PROMPTS.values())
     np.testing.assert_allclose(lt, lj, **TOL)
 
 
@@ -158,8 +171,15 @@ def test_prefill_step_matches_prefill(pair):
 
 def test_decode_cache_hands_over(pair):
     """The logits of decoding token t after a prefill of P tokens equal
-    the last-position logits of a prefill over the P + 1 tokens."""
+    the last-position logits of a prefill over the P + 1 tokens. P = 20 is
+    no multiple of jamba's reduced ssm chunk: the port's mamba prefill
+    hands its state over at any length. A MoE may drop the last token of
+    the longer prefill past an expert's capacity, where the one-token
+    decode step (capacity 1) never drops: the capacity factor here lets
+    every token in (C = S), so the comparison is of the caches alone."""
     _, (ct, model) = pair
+    if ct.n_experts:
+        ct = ct.replace(capacity_factor=ct.n_experts / ct.top_k)
     toks = torch.randint(0, ct.vocab_size, (B, PROMPT + 1),
                          generator=torch.Generator().manual_seed(5))
     cache = tt.init_cache(ct, B, PROMPT + 1, device="cpu")
@@ -170,7 +190,7 @@ def test_decode_cache_hands_over(pair):
     # the rwkv token shift is cached in bfloat16 (as in the reference), so
     # the decode step sees its inputs rounded where the prefill does not
     # (measured 1.6e-3 on logits of magnitude ~1)
-    tol = 1e-4 if ct.block_pattern == ("attn",) else 5e-3
+    tol = 5e-3 if "rwkv" in ct.block_pattern else 1e-4
     torch.testing.assert_close(dec, full[:, -1], rtol=tol, atol=tol)
 
 
@@ -192,9 +212,25 @@ def test_serve_main_runs_on_the_cpu(arch, capsys):
     assert torch.equal(gen, again)
 
 
+def test_serve_main_serves_a_given_config(capsys):
+    """`cfg=` replaces `--arch`'s config: here the reduced jamba cut to its
+    first five layers (every layer kind), as chip_smoke.py serves the
+    full-width cut."""
+    red = tget("jamba-1.5-large-398b").reduced()
+    cut = red.replace(n_layers=5, block_pattern=red.block_pattern[:5])
+    argv = ["--device", "cpu", "--batch", "2", "--prompt-len", "24",
+            "--gen", "3"]
+    gen = serve.main(argv, cfg=cut)
+    assert gen.shape == (2, 3)
+    assert capsys.readouterr().out.startswith(
+        "jamba-1.5-large-398b: prefill 24 toks")
+    with pytest.raises(ValueError, match="both given"):
+        serve.main(["--arch", "internlm2-20b", *argv], cfg=cut)
+
+
 @pytest.mark.parametrize("arch, kind", [
-    ("mixtral-8x7b", "attn_moe"), ("minicpm3-4b", "attention=mla"),
-    ("jamba-1.5-large-398b", "mamba"), ("whisper-large-v3", "attn_cross"),
+    ("minicpm3-4b", "attention=mla"), ("whisper-large-v3", "attn_cross"),
+    ("llava-next-34b", "patch prefix"),
 ])
 def test_unported_archs_raise(arch, kind):
     with pytest.raises(NotImplementedError, match=kind):
