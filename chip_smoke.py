@@ -15,7 +15,10 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      float64 for the solver kernels, float32 and bf16 for attention,
      float32 for RWKV6 and the Mamba scan with their final states), checks
      that two launches on the same inputs agree bitwise and that kernel
-     and plain sums pick the same bracket;
+     and plain sums pick the same bracket; records which attention body
+     (wgmma, mma.sync or SIMT) each case takes, counted per body, and
+     checks that the served prefill shapes, also as the model's transposed
+     views, take the wgmma body;
   3. drives the main paths through the port's entry points at full width,
      each with every kernel's launch count set to 0 just before and read
      just after:
@@ -36,7 +39,9 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          flash_attention / rwkv6_scan / mamba_scan launch per attention /
          RWKV / Mamba layer in the prefill, none in decode; two runs give
          the same tokens, and a prefill over the prompt plus the first
-         token matches the first decode step (the cache hand-over);
+         token matches the first decode step (the cache hand-over); every
+         served flash_attention launch on the wgmma body, both rwkv6
+         passes once per rwkv6_scan call;
      and checks that every output is finite and feasible;
   4. solves on the card and on the CPU (where the plain versions run) in
      float64 and compares them: the paper cell and 4 fleet cells (the
@@ -49,7 +54,8 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      mixtral-8x7b;
   5. times the warm fleet and deadline-fleet solves (median of 3) and each
      kernel per launch (CUDA events) beside its bound, its plain version
-     and, for attention, scaled_dot_product_attention (timed only);
+     and, for attention, scaled_dot_product_attention (timed only), at
+     both served attention shapes; rwkv6_scan also per pass;
   6. traces one fleet solve, one deadline-fleet solve and one LM prefill
      and decode step per configuration with torch.profiler: the card's
      busy time and idle share, and the kernels that take the most time.
@@ -64,6 +70,7 @@ seeds; nothing is downloaded.
 """
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -179,6 +186,33 @@ def record(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
+def ptxas_entries(log):
+    """ptxas's report per kernel entry: "<kernel><template args>:
+    <registers, shared memory>; <stack, spills>", the kernel's name read
+    out of the mangled entry (a length, then that many characters)."""
+    out, entry, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            entry = name[-72:]
+            for m in re.finditer(r"(\d+)([a-z])", name):
+                at, digits = m.start(2), m.group(1)
+                idents = [name[at:at + int(digits[d:])]
+                          for d in range(len(digits))]
+                ident = next((i for i in idents if i.endswith("_kernel")),
+                             None)
+                if ident:
+                    args = re.match(r"(I.*?E)Ev", name[at + len(ident):])
+                    entry = ident + (args.group(1) if args else "")
+                    break
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and entry:
+            out.append(f"{entry}: {ln.split(':', 1)[1].strip()}; {spill}")
+            entry, spill = None, ""
+    return out
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         raise SmokeError(f"no src/repro_torch beside {Path(__file__).name}: "
@@ -200,8 +234,7 @@ def main():
     t0 = time.perf_counter()
     built = build.build()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in build.log_path(name).read_text()
-                    .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_entries(build.log_path(name).read_text())
              for name in build.sources()}
     record("env", card=smi, device=torch.cuda.get_device_name(0),
            count=torch.cuda.device_count(), torch=torch.__version__,
@@ -552,6 +585,8 @@ def counted(torch, fn):
                "mamba_scan": mamba_scan.mamba_scan}
     for k in kernels.values():
         k.launches = 0
+    flash_attention.reset_launches()
+    rwkv6_scan.reset_launches()
     while_cells.host_reads = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -860,6 +895,19 @@ def phase_paper_paths(torch):
            jong_cut=JONG_SPEC)
 
 
+def saved_counts(wrapper):
+    """The launch counts a kernel wrapper keeps (`launches` and any
+    per-body or per-pass `launches_by_*`), to put back after launches that
+    only time it."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in vars(wrapper).items() if k.startswith("launches")}
+
+
+def restore_counts(wrapper, saved):
+    for k, v in saved.items():
+        setattr(wrapper, k, v)
+
+
 def event_ms(torch, fn, reps):
     """Mean milliseconds per call of `fn` over `reps` calls (CUDA events),
     after a warm-up call."""
@@ -880,9 +928,9 @@ def kernel_time(torch, kernel, plain, args, reps, plain_reps, ops, dtype):
     count on the main path), ms of its plain version, and its bound: the
     larger of the bytes it must move (each input read once, the output
     written once) at HBM peak and its counted operations at `dtype`'s peak."""
-    launches = kernel.launches
+    saved = saved_counts(kernel)
     ms = event_ms(torch, lambda: kernel(*args), reps)
-    kernel.launches = launches
+    restore_counts(kernel, saved)
     plain_ms = event_ms(torch, lambda: plain(*args), plain_reps)
     out = plain(*args)
     moved = sum(a.numel() * a.element_size() for a in args) \
@@ -946,9 +994,9 @@ def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
     off `counter.launches`), of its plain version and of the library call,
     and the bound: the larger of `moved` bytes at HBM peak and `ops` at
     `dtype`'s peak. `extra` goes into the record only."""
-    launches = counter.launches
+    saved = saved_counts(counter)
     ms = event_ms(torch, fn, reps)
-    counter.launches = launches
+    restore_counts(counter, saved)
     plain_ms = event_ms(torch, plain, plain_reps)
     library_ms = event_ms(torch, library, reps) if library else None
     bytes_ms = moved / PEAK_BYTES_S * 1e3
@@ -962,27 +1010,33 @@ def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
 
 
 def flash_time(torch):
-    """flash_attention at the internlm2-20b prefill shape (bf16, causal).
-    Operations: the causal (s, t) pairs this mask keeps, S (S + 1) / 2 per
-    (b, h), each a hd-long dot and a vd-long update (2 flops per MAC; the
-    exponentials are left out), at the bf16 tensor-core rate. library_ms
-    is one scaled_dot_product_attention call on the same tensors, timed
-    here only: the port never calls it."""
+    """flash_attention at each served prefill shape (bf16, causal):
+    internlm2-20b's (4,48,8,2048,128), whose numbers go into the `kernels`
+    line (48 of its 49 launches), and jamba's (4,64,8,2048,128), each in
+    its own record. Operations: the causal (s, t) pairs this mask keeps,
+    S (S + 1) / 2 per (b, h), each a hd-long dot and a vd-long update (2
+    flops per MAC; the exponentials are left out), at the bf16 tensor-core
+    rate. library_ms is one scaled_dot_product_attention call on the same
+    tensors, timed here only: the port never calls it."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import flash_attention as fa
 
-    B, H, KV, S, T, hd, vd, _, _ = flash_main_cases()[LM_DENSE]
-    q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, torch.bfloat16)
-    moved = sum(x.numel() * x.element_size() for x in (q, k, v)) \
-        + B * H * S * vd * q.element_size()
-    ops = B * H * (S * (S + 1) // 2) * 2 * (hd + vd)
-    return lm_kernel_time(
-        torch, "flash_attention", fa.flash_attention,
-        lambda: fa.flash_attention(q, k, v, causal=True),
-        lambda: fa.flash_attention_ref(q, k, v, causal=True),
-        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-        moved, ops, "bfloat16", 20, 3)
+    times = {}
+    for arch, (B, H, KV, S, T, hd, vd, _, _) in flash_main_cases().items():
+        q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, torch.bfloat16)
+        moved = sum(x.numel() * x.element_size() for x in (q, k, v)) \
+            + B * H * S * vd * q.element_size()
+        ops = B * H * (S * (S + 1) // 2) * 2 * (hd + vd)
+        times[arch] = lm_kernel_time(
+            torch, "flash_attention", fa.flash_attention,
+            lambda: fa.flash_attention(q, k, v, causal=True),
+            lambda: fa.flash_attention_ref(q, k, v, causal=True),
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            moved, ops, "bfloat16", 20, 3, arch=arch, body=fa.body(q, k, v),
+            shape=[B, H, KV, S, T, hd, vd])
+        del q, k, v
+    return times[LM_DENSE]
 
 
 def rwkv_time(torch):
@@ -992,7 +1046,8 @@ def rwkv_time(torch):
     (r u k summed, times v, added: 5 K), float32 outside the tensor cores;
     the chunked form the kernel runs does more. Bytes: r, k, v, log w and u
     read once, the output and the final state written once. No PyTorch call
-    computes it."""
+    computes it. ms is one call (both passes); each pass is also timed
+    alone (the output pass on the states of an earlier call)."""
     from repro_torch.kernels import rwkv6_scan as rw
 
     B, T, H, K, L, _ = rwkv_cases()[-1]
@@ -1000,11 +1055,20 @@ def rwkv_time(torch):
     ops = B * T * H * (5 * K * K + 6 * K)
     moved = sum(x.numel() * x.element_size() for x in xs) \
         + 4 * (B * T * H * K + B * H * K * K)
+    bufs = rw.buffers(xs[0], L)
+    saved = saved_counts(rw.rwkv6_scan)
+    rw.launch(*xs, *bufs, chunk=L)   # the states the output pass reads
+    pass_ms = {p: event_ms(torch, lambda p=p: rw.launch(
+                   *xs, *bufs, chunk=L, passes=(p,)), 20)
+               for p in rw.PASSES}
+    restore_counts(rw.rwkv6_scan, saved)
+    del bufs
     return lm_kernel_time(
         torch, "rwkv6_scan", rw.rwkv6_scan,
         lambda: rw.rwkv6_scan(*xs, chunk=L),
         lambda: rw.rwkv6_scan_ref(*xs, chunk=L), None,
-        moved, ops, "float32", 20, 3)
+        moved, ops, "float32", 20, 3, shape=[B, T, H, K], chunk=L,
+        state_pass_ms=pass_ms["state"], output_pass_ms=pass_ms["output"])
 
 
 def mamba_time(torch):
@@ -1116,7 +1180,10 @@ def flash_spread(torch, q, k, v, causal, window):
 
 
 def phase_flash_kernel(torch):
-    """flash_attention against its plain version on the card."""
+    """flash_attention against its plain version on the card, each case on
+    the body `flash_attention.body` picks (counted per body); the served
+    prefills must take the wgmma body, also as the model's (B, S, H, hd)
+    transposed views, which must give the same bits."""
     from repro_torch.kernels import flash_attention as fa
 
     rows, main_err = [], 0.0
@@ -1128,10 +1195,14 @@ def phase_flash_kernel(torch):
         for i, (B, H, KV, S, T, hd, vd, causal, window) in enumerate(cases):
             q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, dtype)
             kw = dict(causal=causal, window=window)
+            which = fa.body(q, k, v)
+            before = dict(fa.flash_attention.launches_by_body)
             out = fa.flash_attention(q, k, v, **kw)
             again = fa.flash_attention(q, k, v, **kw)
             plain = fa.flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
+            ran = {b: n - before[b]
+                   for b, n in fa.flash_attention.launches_by_body.items()}
             mag = plain.float().abs()
             err = (out.float() - plain.float()).abs()
             spread = flash_spread(torch, q, k, v, causal, window) if u \
@@ -1141,7 +1212,7 @@ def phase_flash_kernel(torch):
             where = f"{(B, H, KV, S, T, hd, vd)}, causal={causal}, " \
                     f"window={window}, {name}"
             rows.append(dict(shape=[B, H, KV, S, T, hd, vd], causal=causal,
-                             window=window, dtype=name,
+                             window=window, dtype=name, body=which,
                              max_abs_err=float(err.max()), tol=tol,
                              atol=atol, p_roundoff=u,
                              median_abs_plain=float(mag.median()),
@@ -1149,8 +1220,26 @@ def phase_flash_kernel(torch):
                              max_err_over_allowed=float((err / allowed).max()),
                              finite=bool(torch.isfinite(out).all()),
                              repeatable=torch.equal(out, again)))
-            if cases[i] in main and dtype == torch.bfloat16:
+            served = cases[i] in main and dtype == torch.bfloat16
+            if served:
                 main_err = max(main_err, float(err.max()))
+                # the model's layout: (B, S, heads, hd) transposed
+                qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                              for x in (q, k, v))
+                view_body = fa.body(qt, kt, vt)
+                rows[-1].update(model_layout_body=view_body,
+                                model_layout_same=torch.equal(
+                                    fa.flash_attention(qt, kt, vt, **kw),
+                                    out))
+                del qt, kt, vt
+                check(which == view_body == "wgmma",
+                      f"flash_attention: served shape on the {which} body "
+                      f"(model layout {view_body}), not wgmma ({where})")
+                check(rows[-1]["model_layout_same"],
+                      f"flash_attention: model layout differs ({where})")
+            check(ran == {b: 2 * (b == which) for b in ran},
+                  f"flash_attention: launches by body {ran}, want 2 on "
+                  f"{which} ({where})")
             check(rows[-1]["finite"], f"flash_attention: non-finite ({where})")
             check(rows[-1]["repeatable"],
                   f"flash_attention: two launches differ ({where})")
@@ -1182,9 +1271,11 @@ def rwkv_inputs(torch, B, T, H, K, strong=False, seed=2):
 
 def rwkv_cases():
     """(B, T, H, K, chunk, strong): tests/test_kernels.py's shapes, the
-    log w = -8 strong decay, ragged T, and the rwkv6-1.6b prefill (last)."""
+    log w = -8 strong decay, ragged T, K 16 and 64 at chunks 32 and 16, and
+    the rwkv6-1.6b prefill (last)."""
     return [(1, 64, 2, 32, 32, False), (2, 128, 4, 64, 64, False),
             (1, 128, 2, 32, 64, True), (2, 100, 3, 32, 16, False),
+            (1, 90, 3, 16, 32, False), (2, 50, 2, 64, 16, True),
             (LM_BATCH, LM_PROMPT, 32, 64, 64, False)]
 
 
@@ -1373,6 +1464,8 @@ def phase_lm_serve(torch):
     tokens), then the decode cache's hand-over: a prefill over prompt +
     first generated token against the first decode step, with that prefill
     traced."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.launch import serve
     from repro_torch.models.transformer import (init_cache, init_model,
                                                 prefill, serve_step)
@@ -1386,6 +1479,8 @@ def phase_lm_serve(torch):
         stats = {}
         gen, counts, _, wall = counted(
             torch, lambda: serve.main(serve_argv(), stats=stats, cfg=cfg))
+        bodies = dict(fa.flash_attention.launches_by_body)
+        passes = dict(rw.rwkv6_scan.launches_by_pass)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         last = stats.pop("prefill_last_logits")
         finite = bool(torch.isfinite(last).all())
@@ -1399,6 +1494,8 @@ def phase_lm_serve(torch):
                    gen=LM_GEN, wall_s=wall, peak_memory_gb=peak_gb,
                    parameters=None, logits_finite=finite,
                    same_tokens_twice=same, launches=counts,
+                   flash_launches_by_body=bodies,
+                   rwkv_launches_by_pass=passes,
                    sample=gen[0, :12].tolist(), **stats)
         torch.cuda.empty_cache()
 
@@ -1443,6 +1540,13 @@ def phase_lm_serve(torch):
               f"{arch}: kernel launches in decode {stats['decode_launches']}")
         check(counts == want, f"{arch}: launches in the run {counts} "
                               f"(want {want})")
+        check(bodies == {"wgmma": want["flash_attention"], "mma": 0,
+                         "simt": 0},
+              f"{arch}: flash launches by body {bodies}: every served one "
+              f"on wgmma ({want['flash_attention']})")
+        check(passes == dict.fromkeys(passes, want["rwkv6_scan"]),
+              f"{arch}: rwkv6 passes {passes} (want {want['rwkv6_scan']} "
+              f"each)")
         check(gap <= LM_HANDOVER_TOL * scale,
               f"{arch}: decode after prefill differs from the longer prefill "
               f"by {gap:.3g} > {LM_HANDOVER_TOL:g} x {scale:.3g}")

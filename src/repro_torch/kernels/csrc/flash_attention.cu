@@ -15,30 +15,51 @@
 // (B,H,S,hd) = (4,48,2048,128) causal, QK^T and PV are ~2 x 103 G MAC,
 // against ~235 MB of q/k/v/o.
 //
-// Design. One block per (query tile of 64 rows, h, b), the query tiles of a
-// head walked from the last (most keys under the causal mask) to the first.
-// The block loops over 64-key tiles from the window's first key (or 0) to
-// the causal diagonal (or T), with the q, k and v tiles in shared memory.
-// Two bodies:
-//  * bf16 / f16 (the serving path): 4 warps on the tensor cores through
-//    mma.sync.m16n8k16 with float32 accumulation, 16 query rows per warp;
-//    the score fragments are reused as the A fragments of P V, so P is
-//    rounded to the input type before that product (the TPU body kept P in
-//    float32; the gap is inside the bf16 tolerance). It needs hd % 16 == 0
-//    and an even vd <= 128; other 16-bit shapes are refused
-//    (cudaErrorInvalidValue). No TMA / wgmma pipeline yet: later work.
-//  * float32: 256 threads of float32 FMAs, each owning a 4 x 4 block of
-//    the score tile and the same 4 output rows; any hd, vd <= 256.
-// In both, the running max m, sum l and the rescale by
+// Three bodies; the Python wrapper picks one (flash_attention.py::body) and
+// calls its entry, which refuses any shape it does not take:
+//  * wgmma (flash_attention_fwd_wgmma; bf16 / f16, hd == vd in {64, 128},
+//    every stride a multiple of 16 bytes and every base 16-byte aligned):
+//    one persistent block per SM takes (128-row query tile, h, b) tiles
+//    longest first from a global counter; a producer warpgroup and two
+//    consumer warpgroups of 64 rows. The producer's one thread loads each
+//    tile's Q by TMA and keeps a ring of K/V stages in flight (128-key
+//    tiles, 128-byte swizzle, an mbarrier full/empty pair per stage),
+//    running on into the next tile while the consumers finish this one, the
+//    tensor maps encoded on the host per call from the tensors' strides;
+//    `setmaxnreg` hands its registers to the consumers. Each consumer runs
+//    S = Q K^T as wgmma with both operands in shared memory, the online
+//    softmax on the accumulator fragments in float32 (exp2 with
+//    scale * log2(e) folded in), P rounded to the input type in registers,
+//    and O += P V as wgmma with P as the register A operand and V as the
+//    transposed shared-memory B operand. The softmax of tile i runs while
+//    the P V product of tile i - 1 is in flight, and the two consumers take
+//    turns starting their products (named barriers), so one's softmax
+//    overlaps the other's tensor-core work. Only the tiles that cross the
+//    causal diagonal, the window's edge or T are masked.
+//  * mma.sync (flash_attention_fwd, 16-bit; hd % 16 == 0, an even vd <= 128):
+//    one block of 4 warps per (64-row query tile, h, b) on
+//    mma.sync.m16n8k16 with float32 accumulation, 16 query rows per warp,
+//    16-byte cp.async tile loads; every other 16-bit shape (hd 32 or 96,
+//    vd != hd, strides or bases off 16 bytes).
+//  * float32 (flash_attention_fwd, float32): 256 threads of float32 FMAs,
+//    each owning a 4 x 4 block of the score tile and the same 4 output
+//    rows; any hd, vd <= 256.
+// The query tiles are walked from the last (most keys under the causal
+// mask) to the first. The 16-bit bodies reuse the score fragments as the A
+// fragments of P V, so P is rounded to the input type before that product
+// (the TPU body kept P in float32; the gap is inside the bf16 tolerance).
+// In all three, the running max m, sum l and the rescale by
 // alpha = exp(m_prev - m_cur) stay in float32 registers (as the TPU body's
 // m/l/acc scratch). Masked scores are -1e30, not
 // -inf: a tile in which a row sees no key gives alpha = 1 and p = 1 for that
 // row, which the first tile with a visible key wipes (alpha = 0), exactly as
 // the TPU body; l is clamped at 1e-30 before the division. Ragged S and T
-// are zero-padded in shared memory and padded keys are masked whether or not
-// the mask is causal. No atomics: each block writes its own rows, so two
-// launches give bitwise equal outputs. Built without fast math.
+// are zero-padded in shared memory (by TMA in the wgmma body) and padded
+// keys are masked whether or not the mask is causal. No atomics and no
+// split over keys: each block writes its own rows, so two launches give
+// bitwise equal outputs. Built without fast math.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -540,6 +561,772 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B,
                            causal, window, s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / f16 with hd == vd in {64, 128}: wgmma fed by a TMA ring,
+// warp-specialised (a producer warpgroup, two consumer warpgroups)
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BQ = 128;       // query rows per block: two consumers of 64
+constexpr int WG_BK = 128;       // keys per K/V stage
+constexpr int WG_THREADS = 384;  // warpgroup 0 produces, 1 and 2 consume
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// arrive once and add `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one TMA box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing its bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// named barrier `id` over the two consumer warpgroups (256 threads)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+// keeps the compiler from moving reads or writes of wgmma's registers
+// across the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
+}
+
+// D (64 x N, float32) (+)= A (64 x 16) B (16 x N), both K-major in shared
+// memory; accumulate 0 overwrites D
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate);
+// D (64 x N, float32) += A (64 x 16, registers) B (16 x N, N-major in shared
+// memory)
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <> __device__ __forceinline__ void wgmma_ss<__nv_bfloat16, 64>(
+    float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss<__nv_bfloat16, 128>(
+    float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss<__half, 64>(
+    float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss<__half, 128>(
+    float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 64>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 128>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<__half, 64>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <> __device__ __forceinline__ void wgmma_rs<__half, 128>(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// This consumer's rows and the mask: rows r0 .. r0 + 63, this lane's
+// rows row0 and row0 + 8, its accumulator columns 2 t, 2 t + 1 of every 8
+struct Rows {
+  int r0, row0, t, Tk, causal, window;
+  float scale_log2;
+};
+
+// S = Q K^T (64 x WG_BK, float32) for this consumer's 64 rows of the Q
+// tile at `qa` and the K tile at `kb`: HD / 16 steps of 16 along the head
+// dimension, 32 bytes into a 128-byte swizzled row per step, a new 64-column
+// slab every 4; the first step overwrites sc. Started and committed; the
+// caller waits.
+template <typename T, int HD>
+__device__ __forceinline__ void qk_start(float (&sc)[WG_BK / 2], uint32_t qa,
+                                         uint32_t kb) {
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<T, WG_BK>(
+        sc, sw128_desc(qa + (kk / 4) * (WG_BQ * 128) + off, 16, 1024),
+        sw128_desc(kb + (kk / 4) * (WG_BK * 128) + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// 2^x on the special-function unit (2 ulp; results below 2^-126 flush to
+// 0, where p is negligible beside the row's largest term, 1)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of the tile of keys k0 .. k0 + WG_BK in log2 units
+// (x = s * scale * log2(e)): m and l move to this tile, sc becomes P in
+// float32 and alpha = exp2(m_prev - m). A tile that crosses the causal
+// diagonal, the window's edge or T masks its scores to -1e30; a full tile
+// with a positive scale takes the row max of the raw scores and one FFMA
+// per score, p = exp2(s * scale * log2(e) - m).
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], int k0,
+                                             const Rows& w, float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2]) {
+  const bool edge = k0 + WG_BK > w.Tk ||
+                    (w.causal && k0 + WG_BK - 1 > w.r0) ||
+                    (w.window > 0 && k0 <= w.r0 + 63 - w.window);
+  const bool fast = !edge && w.scale_log2 > 0.f;
+  float mx[2] = {NEG_INF, NEG_INF};
+  if (fast) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] *= w.scale_log2;
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = w.row0 + 8 * (e >> 1);
+        const int kpos = k0 + 8 * j + 2 * w.t + (e & 1);
+        bool ok = kpos < w.Tk;
+        if (w.causal) ok = ok && kpos <= qpos;
+        if (w.window > 0) ok = ok && kpos > qpos - w.window;
+        const float x = ok ? sc[4 * j + e] * w.scale_log2 : NEG_INF;
+        sc[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_cur = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2_ftz(m[r] - m_cur);
+    m[r] = m_cur;
+  }
+  if (fast) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float p = ex2_ftz(fmaf(sc[j], w.scale_log2, -m[(j >> 1) & 1]));
+      sc[j] = p;
+      ps[(j >> 1) & 1] += p;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float p = ex2_ftz(sc[j] - m[(j >> 1) & 1]);
+      sc[j] = p;
+      ps[(j >> 1) & 1] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+    ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+    l[r] = l[r] * alpha[r] + ps[r];
+  }
+}
+
+// O's rows to the new running max
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j] *= alpha[(j >> 1) & 1];
+}
+
+// P, rounded to T, as wgmma's register A fragments: keys 16 kk .. 16 kk +
+// 15 are the accumulator's column tiles 2 kk and 2 kk + 1
+template <typename T>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[WG_BK / 16][4],
+                                       const float (&sc)[WG_BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < WG_BK / 16; ++kk) {
+    pa[kk][0] = pack_f<T>(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_f<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_f<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_f<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// O += P V for the V tile at `vb`: its rows are keys with the value columns
+// contiguous (the N-major B operand): 8-key groups 1024 bytes apart,
+// 64-column slabs WG_BK * 128 bytes apart, 16 keys (2048 bytes) per step.
+// Started and committed; the caller waits.
+template <typename T, int HD>
+__device__ __forceinline__ void pv_start(float (&acc)[HD / 2],
+                                         uint32_t (&pa)[WG_BK / 16][4],
+                                         uint32_t vb) {
+  fence_regs(acc);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < WG_BK / 16; ++kk)
+    wgmma_rs<T, HD>(acc, pa[kk], sw128_desc(vb + kk * 2048, WG_BK * 128, 1024));
+  wgmma_commit();
+}
+// one arrival per consumer warp on a stage's empty barrier
+__device__ __forceinline__ void release_stage(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// A (128-row query tile, h, b) of the grid, numbered last (most keys) first
+// over all (h, b): its rows q0 .. q0 + 127 and its 128-key steps from
+// kv_begin (the window's first key, or 0) to the causal diagonal (or T).
+struct Tile {
+  int q0, h, b, kv_begin, n_steps;
+};
+
+__device__ __forceinline__ Tile tile_of(int w, int B, int H, int S, int Tk,
+                                        int causal, int window) {
+  Tile x;
+  const int n_q = (S + WG_BQ - 1) / WG_BQ;
+  const int bh = w % (B * H);
+  x.q0 = (n_q - 1 - w / (B * H)) * WG_BQ;
+  x.h = bh % H;
+  x.b = bh / H;
+  int kv_end = Tk;
+  if (causal && x.q0 + WG_BQ < kv_end) kv_end = x.q0 + WG_BQ;
+  int kv_begin = 0;
+  if (window > 0 && x.q0 - window + 1 > 0) kv_begin = x.q0 - window + 1;
+  x.kv_begin = (kv_begin / WG_BK) * WG_BK;
+  x.n_steps = kv_end > x.kv_begin
+                  ? (kv_end - x.kv_begin + WG_BK - 1) / WG_BK
+                  : 0;
+  return x;
+}
+
+// Persistent: one block per SM. Warpgroup 0's first thread takes the tiles
+// one after another (its block's index first, then the next from the
+// global counter `next`, so the tiles go out longest first to whichever
+// block is free), writes each tile's index to shared memory, loads its Q
+// (HD / 64 swizzled 64-column slabs) by TMA, and keeps the K and V tiles of
+// its 128-key steps in a ring of STAGES stages, running on into the next
+// tile while the consumers finish this one. Consumer c (warpgroups 1, 2)
+// owns query rows 64c .. 64c + 63 of every tile. Accumulator fragment of
+// wgmma (per warp w of a warpgroup, lane = 4 g + t): element 4 j + e is
+// row 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2). Which block takes
+// a tile changes nothing in its arithmetic: two launches are bitwise equal.
+template <typename T, int HD, int STAGES>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                   int* __restrict__ next, int B, int H, int KV, int S,
+                   int Tk, float scale_log2, int causal, int window) {
+  constexpr int SLABS = HD / 64;
+  constexpr uint32_t Q_BYTES = WG_BQ * HD * 2;
+  constexpr uint32_t KV_BYTES = WG_BK * HD * 2;  // one K or V stage
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  __shared__ int tile_id;                         // the tile in Q, or -1
+  const uint32_t sQ = (smem_u32(smem_wg) + 1023u) & ~1023u;  // swizzle atom
+  const uint32_t sK = sQ + Q_BYTES;
+  const uint32_t sV = sK + STAGES * KV_BYTES;
+  const uint32_t bar_qfull = sV + STAGES * KV_BYTES;
+  const uint32_t bar_qempty = bar_qfull + 8;
+  const uint32_t bar_full = bar_qempty + 8;            // [STAGES]
+  const uint32_t bar_empty = bar_full + 8 * STAGES;    // [STAGES]
+  const int n_work = ((S + WG_BQ - 1) / WG_BQ) * B * H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_qfull, 1);
+    mbar_init(bar_qempty, 8);  // one arrival per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer --------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;  // K/V steps requested, over every tile of this block
+      for (int j = 0;; ++j) {
+        if (j > 0) mbar_wait(bar_qempty, (j - 1) & 1);  // Q is free
+        const int w = j == 0 ? blockIdx.x : gridDim.x + atomicAdd(next, 1);
+        tile_id = w < n_work ? w : -1;
+        if (w >= n_work) {
+          mbar_arrive(bar_qfull);  // no tile: the consumers stop
+          break;
+        }
+        const Tile x = tile_of(w, B, H, S, Tk, causal, window);
+        const int kvh = x.h / (H / KV);
+        mbar_expect_tx(bar_qfull, Q_BYTES);
+        for (int s = 0; s < SLABS; ++s)
+          tma_load_4d(sQ + s * (WG_BQ * 128), &tq, bar_qfull, 64 * s, x.q0,
+                      x.h, x.b);
+        for (int i = 0; i < x.n_steps; ++i, ++it) {
+          const int st = it % STAGES;
+          if (it >= STAGES)
+            mbar_wait(bar_empty + 8 * st, (it / STAGES - 1) & 1);
+          const uint32_t full = bar_full + 8 * st;
+          mbar_expect_tx(full, 2 * KV_BYTES);
+          const int k0 = x.kv_begin + i * WG_BK;
+          for (int s = 0; s < SLABS; ++s) {
+            tma_load_4d(sK + st * KV_BYTES + s * (WG_BK * 128), &tk, full,
+                        64 * s, k0, kvh, x.b);
+            tma_load_4d(sV + st * KV_BYTES + s * (WG_BK * 128), &tv, full,
+                        64 * s, k0, kvh, x.b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers -------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const uint32_t qa = sQ + c * (64 * 128);  // its 64 rows of each slab
+
+    // The two consumers take turns starting their products, over every
+    // tile of the block: named barrier 1 + c is consumer c's turn, opened
+    // by the other's arrival; consumer 0 goes first and takes one extra
+    // turn at the very end to balance the arrivals. So one runs its
+    // softmax while the other's products run. Each starts S_i = Q K_i^T
+    // and then O += P_{i-1} V_{i-1}, and runs the softmax of S_i while the
+    // second product is in flight. The first and the last step of a tile
+    // are peeled off so that no wgmma sits under a branch.
+    if (c == 1) named_arrive(1);
+    int it = 0;  // K/V steps consumed, over every tile of this block
+    for (int j = 0;; ++j) {
+      mbar_wait(bar_qfull, j & 1);
+      const int w = tile_id;
+      if (w < 0) break;
+      const Tile x = tile_of(w, B, H, S, Tk, causal, window);
+      const int r0 = x.q0 + 64 * c;            // this consumer's first row
+      const int row0 = r0 + 16 * warp + g;     // this lane's rows: +0, +8
+      const Rows rows{r0, row0, t, Tk, causal, window, scale_log2};
+      float acc[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+      float sc[WG_BK / 2];         // S of this step, then its P in float32
+      uint32_t pa[WG_BK / 16][4];  // P of the previous step, A fragments
+
+      if (x.n_steps > 0) {
+        mbar_wait(bar_full + 8 * (it % STAGES), (it / STAGES) & 1);
+        named_sync(1 + c);
+        qk_start<T, HD>(sc, qa, sK + (it % STAGES) * KV_BYTES);
+        named_arrive(2 - c);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        softmax_tile(sc, x.kv_begin, rows, m, l, alpha);
+        pack_p<T>(pa, sc);
+        for (int i = 1; i < x.n_steps; ++i) {
+          const int st = (it + i) % STAGES;
+          const int prev = (it + i - 1) % STAGES;
+          mbar_wait(bar_full + 8 * st, ((it + i) / STAGES) & 1);
+          named_sync(1 + c);
+          qk_start<T, HD>(sc, qa, sK + st * KV_BYTES);
+          rescale(acc, alpha);
+          pv_start<T, HD>(acc, pa, sV + prev * KV_BYTES);
+          named_arrive(2 - c);
+          wgmma_wait<1>();
+          fence_regs(sc);
+          softmax_tile(sc, x.kv_begin + i * WG_BK, rows, m, l, alpha);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(pa);
+          release_stage(bar_empty + 8 * prev, lane);
+          pack_p<T>(pa, sc);
+        }
+      }
+      // every product with Q is done: the producer may load the next tile
+      release_stage(bar_qempty, lane);
+      if (x.n_steps > 0) {
+        const int last = (it + x.n_steps - 1) % STAGES;
+        rescale(acc, alpha);
+        pv_start<T, HD>(acc, pa, sV + last * KV_BYTES);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+        release_stage(bar_empty + 8 * last, lane);
+        it += x.n_steps;
+      }
+
+      T* ob = o + (static_cast<long long>(x.b) * H + x.h) * S * HD;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int s = row0 + 8 * r;
+        if (s >= S) continue;
+        const float lc = fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n)
+          *reinterpret_cast<uint32_t*>(&ob[static_cast<long long>(s) * HD +
+                                           8 * n + 2 * t]) =
+              pack_f<T>(acc[4 * n + 2 * r] / lc, acc[4 * n + 2 * r + 1] / lc);
+      }
+    }
+    if (c == 0) named_sync(1);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
+// (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (64-column x `rows`) box map of a (batch, heads, len, width) tensor of
+// 16-bit elements with element strides sb, sh, sl (width contiguous), as
+// the 4-D (width, len, heads, batch) TMA view, 128-byte swizzle; reads
+// past len come back zero
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                int batch, int heads, int len, int width, long long sb,
+                long long sh, long long sl, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// multiprocessors of the current device: the persistent grid's size
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <typename T, int HD, int STAGES>
+int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                 const CUtensorMap& tv, void* o, int* next, int B, int H,
+                 int KV, int S, int Tk, float scale, int causal, int window,
+                 cudaStream_t stream) {
+  constexpr int smem = 1024 + WG_BQ * HD * 2 + 2 * STAGES * WG_BK * HD * 2 +
+                       16 + 16 * STAGES;
+  auto kern = flash_wgmma_kernel<T, HD, STAGES>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long work =
+      static_cast<long long>((S + WG_BQ - 1) / WG_BQ) * H * B;
+  const int sms = sm_count();
+  if (work > 0x3fffffffLL || sms <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(work < sms ? work : sms);
+  kern<<<blocks, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), next, B, H, KV, S, Tk, scale * LOG2E,
+      causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_wgmma(CUtensorMapDataType type, const void* q, const void* k,
+                   const void* v, void* o, int* next, int B, int H, int KV,
+                   int S, int Tk, int hd, const long long* st, float scale,
+                   int causal, int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, type, q, B, H, S, hd, st[0], st[1], st[2], WG_BQ) ||
+      !encode_map(&tk, type, k, B, KV, Tk, hd, st[3], st[4], st[5], WG_BK) ||
+      !encode_map(&tv, type, v, B, KV, Tk, hd, st[6], st[7], st[8], WG_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 64)
+    return launch_wgmma<T, 64, 3>(tq, tk, tv, o, next, B, H, KV, S, Tk,
+                                  scale, causal, window, stream);
+  return launch_wgmma<T, 128, 3>(tq, tk, tv, o, next, B, H, KV, S, Tk, scale,
+                                 causal, window, stream);
+}
+
+
 }  // namespace
 
 extern "C" {
@@ -568,6 +1355,43 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
     case 2:
       return dispatch_mma<__half>(q, k, v, o, B, H, KV, S, T, hd, vd, st,
                                   scale, causal, window, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The wgmma body: dtype 1 bfloat16, 2 float16; hd == vd in {64, 128};
+// every stride a positive multiple of 8 elements and every base 16-byte
+// aligned (what TMA reads). Anything else is refused
+// (cudaErrorInvalidValue), never handed to another body. next: one int32
+// on the device, 0 at the launch (the persistent blocks' tile counter).
+int flash_attention_fwd_wgmma(int dtype, const void* q, const void* k,
+                              const void* v, void* o, void* next, int B,
+                              int H, int KV,
+                              int S, int T, int hd, int vd, long long qsb,
+                              long long qsh, long long qss, long long ksb,
+                              long long ksh, long long kss, long long vsb,
+                              long long vsh, long long vss, float scale,
+                              int causal, int window, void* stream) {
+  const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
+  bool ok = next != nullptr && B > 0 && H > 0 && KV > 0 && H % KV == 0 &&
+            S > 0 && T > 0 &&
+            hd == vd && (hd == 64 || hd == 128) &&
+            (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+             reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  for (int i = 0; i < 9; ++i) ok = ok && st[i] > 0 && st[i] % 8 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1:
+      return dispatch_wgmma<__nv_bfloat16>(
+          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, o,
+          static_cast<int*>(next), B, H, KV, S, T, hd, st, scale, causal,
+          window, s);
+    case 2:
+      return dispatch_wgmma<__half>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v,
+                                    o, static_cast<int*>(next), B, H, KV, S,
+                                    T, hd, st, scale, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

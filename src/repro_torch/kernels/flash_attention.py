@@ -6,9 +6,11 @@ Port of `repro/kernels/flash_attention.py` (the Pallas kernel
   * `flash_attention_ref`: plain PyTorch, a masked softmax in float32 over
     the whole score matrix (as `repro/kernels/ref.py::flash_attention_ref`).
     The CPU path and the reference the CUDA kernel is held against.
-  * `flash_attention`: the wrapper of the hand-written CUDA kernel in
+  * `flash_attention`: the wrapper of the hand-written CUDA kernels in
     `csrc/flash_attention.cu` (built by `kernels.build`). CUDA tensors only;
-    it counts its launches in `flash_attention.launches`.
+    `body` picks one of its three bodies, and the wrapper counts its
+    launches in `flash_attention.launches` and, per body, in
+    `flash_attention.launches_by_body`.
 
 Both take the JAX layout: q (B, H, S, hd), k (B, KV, T, hd), v (B, KV, T, vd)
 with H % KV == 0 (query head h reads KV head h // (H // KV)), and return
@@ -16,7 +18,7 @@ with H % KV == 0 (query head h reads KV head h // (H // KV)), and return
 position s when t <= s (causal) and t > s - window (a window is set). Any S
 and T are taken: the kernel pads its tiles itself and masks padded keys,
 causal or not. The kernel takes bfloat16 / float16 with hd % 16 == 0 and an
-even vd <= 128 (its tensor-core body), float32 with hd, vd <= 256.
+even vd <= 128 (its tensor-core bodies), float32 with hd, vd <= 256.
 """
 from __future__ import annotations
 
@@ -32,6 +34,23 @@ Tensor = torch.Tensor
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+BODIES = ("wgmma", "mma", "simt")
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def body(q: Tensor, k: Tensor, v: Tensor) -> str:
+    """The CUDA body that takes these inputs: "wgmma" (TMA and wgmma:
+    16-bit, hd == vd in WGMMA_HEAD_DIMS, every batch/head/row stride a
+    positive multiple of 16 bytes, every base 16-byte aligned), "mma"
+    (mma.sync: every other 16-bit shape) or "simt" (float32). Reads only
+    dtypes, shapes, strides and data pointers, so CPU tensors answer too."""
+    if q.dtype == torch.float32:
+        return "simt"
+    hd, vd = q.shape[-1], v.shape[-1]
+    tma = all(t.data_ptr() % 16 == 0
+              and all(st > 0 and st * t.element_size() % 16 == 0
+                      for st in t.stride()[:3]) for t in (q, k, v))
+    return "wgmma" if hd == vd and hd in WGMMA_HEAD_DIMS and tma else "mma"
 
 
 def _mask(S: int, T: int, causal: bool, window: Optional[int],
@@ -67,11 +86,15 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor, *,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 \
+    tail = [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [ctypes.c_int] \
+        + [ctypes.c_void_p] * 4 + tail
+    # the wgmma entry also takes its blocks' tile counter after o
+    lib.flash_attention_fwd_wgmma.argtypes = [ctypes.c_int] \
+        + [ctypes.c_void_p] * 5 + tail
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_wgmma):
+        fn.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -114,27 +137,43 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """CUDA kernel: attention -> (B, H, S, vd), contiguous, in q's dtype.
 
     q, k, v may be strided views (a transpose of (B, S, H, hd) included) as
-    long as the last dimension is contiguous. Two launches on equal inputs
-    give bitwise equal outputs."""
+    long as the last dimension is contiguous. `body(q, k, v)` picks the
+    kernel; its entry refuses what it does not take. Two launches on equal
+    inputs give bitwise equal outputs."""
     _check(q, k, v, window)
     B, H, S, hd = q.shape
     KV, T, vd = k.shape[1], k.shape[2], v.shape[3]
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty((B, H, S, vd), dtype=q.dtype, device=q.device)
+    which = body(q, k, v)
     lib = _lib()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    entry = lib.flash_attention_fwd
+    if which == "wgmma":
+        # the persistent blocks take their tiles from this counter, held
+        # here until the launch is on the stream
+        tiles = torch.zeros(1, dtype=torch.int32, device=q.device)
+        ptrs.append(tiles.data_ptr())
+        entry = lib.flash_attention_fwd_wgmma
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, H, KV, S, T, hd, vd,
+        rc = entry(
+            _DTYPES[q.dtype], *ptrs, B, H, KV, S, T, hd, vd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             float(scale), int(bool(causal)),
             -1 if window is None else int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError("flash_attention: kernel launch failed: "
+        raise RuntimeError(f"flash_attention: {which} kernel launch failed: "
                            + lib.flash_error_string(rc).decode())
     flash_attention.launches += 1
+    flash_attention.launches_by_body[which] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_launches():
+    """Sets the total and every per-body launch count to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+reset_launches()

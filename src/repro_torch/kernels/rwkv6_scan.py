@@ -8,9 +8,11 @@ Two versions of one function live here:
     exp(clw'_t - clw_tau) <= 1, the u bonus on the diagonal, the (K, V)
     state carried across chunks). The CPU path and the reference the CUDA
     kernel is held against.
-  * `rwkv6_scan`: the wrapper of the hand-written CUDA kernel in
-    `csrc/rwkv6_scan.cu` (built by `kernels.build`). CUDA tensors only; it
-    counts its launches in `rwkv6_scan.launches`.
+  * `rwkv6_scan`: the wrapper of the hand-written CUDA kernels in
+    `csrc/rwkv6_scan.cu` (built by `kernels.build`): a state pass over the
+    chunks in order, then an output pass with one block per chunk. CUDA
+    tensors only; it counts its calls in `rwkv6_scan.launches` and each
+    pass's kernel launches in `rwkv6_scan.launches_by_pass`.
 
 Both take r, k, v, logw (B, T, H, K) and u (H, K), start from a zero state
 and return (o (B, T, H, K), S_end (B, H, K, K)) in float32: unlike the
@@ -68,8 +70,8 @@ def rwkv6_scan_ref(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
 def _lib() -> ctypes.CDLL:
     lib = build.load("rwkv6_scan")
     fn = lib.rwkv6_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.rwkv6_error_string.argtypes = [ctypes.c_int]
     lib.rwkv6_error_string.restype = ctypes.c_char_p
@@ -96,36 +98,70 @@ def _check(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
     if chunk not in CHUNKS or K not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan: the kernel takes chunk in {CHUNKS} and "
                          f"K in {HEAD_DIMS}, got chunk={chunk}, K={K}")
-    if not (0 < B <= 65535 and T > 0 and H > 0):
-        raise ValueError(f"rwkv6_scan: need 0 < B <= 65535, T, H > 0; got "
+    if not (0 < B <= 65535 and T > 0 and 0 < H <= 65535):
+        raise ValueError(f"rwkv6_scan: need 0 < B, H <= 65535 and T > 0; got "
                          f"{tuple(r.shape)}")
 
 
-def rwkv6_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, *,
-               chunk: int = 64) -> Tuple[Tensor, Tensor]:
-    """CUDA kernel: chunked WKV6 -> (o (B, T, H, K), S_end (B, H, K, K)).
+PASSES = {"state": 1, "output": 2}
 
-    r, k, v, logw may be strided views with a contiguous last dimension.
-    One block per (b, h) walks the chunks in order; two launches on equal
-    inputs give bitwise equal outputs."""
-    _check(r, k, v, logw, u, chunk)
+
+def launch(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, o: Tensor,
+           S: Tensor, states: Tensor, *, chunk: int,
+           passes=("state", "output")) -> None:
+    """Launches the named passes, in order, on the current stream, counting
+    each in `rwkv6_scan.launches_by_pass`: "state" writes `states` (the
+    state entering every chunk but the first, (B, H, n_chunks - 1, K, K))
+    and the final state S; "output" reads `states` and writes o. The
+    wrapper `rwkv6_scan` runs both; one pass alone is for timing it."""
     B, T, H, K = r.shape
-    o = torch.empty((B, T, H, K), dtype=torch.float32, device=r.device)
-    S = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (r, k, v, logw)
                                          for s in t.stride()[:3]))
     lib = _lib()
     with torch.cuda.device(r.device):
         rc = lib.rwkv6_scan_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), o.data_ptr(), S.data_ptr(), B, T, H, K, chunk,
-            ctypes.addressof(strides),
+            u.data_ptr(), o.data_ptr(), S.data_ptr(), states.data_ptr(), B,
+            T, H, K, chunk, ctypes.addressof(strides),
+            sum(PASSES[p] for p in passes),
             torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("rwkv6_scan: kernel launch failed: "
                            + lib.rwkv6_error_string(rc).decode())
+    for p in passes:
+        rwkv6_scan.launches_by_pass[p] += 1
+
+
+def buffers(r: Tensor, chunk: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """Uninitialised (o, S_end, states) for `launch`, on r's device."""
+    B, T, H, K = r.shape
+    n_chunks = -(-T // chunk)
+    return (torch.empty((B, T, H, K), dtype=torch.float32, device=r.device),
+            torch.empty((B, H, K, K), dtype=torch.float32, device=r.device),
+            torch.empty((B, H, n_chunks - 1, K, K), dtype=torch.float32,
+                        device=r.device))
+
+
+def rwkv6_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor, *,
+               chunk: int = 64) -> Tuple[Tensor, Tensor]:
+    """CUDA kernels: chunked WKV6 -> (o (B, T, H, K), S_end (B, H, K, K)).
+
+    r, k, v, logw may be strided views with a contiguous last dimension.
+    The state pass (one block per (h, b)) walks the chunks in order and
+    keeps the state entering each in a scratch buffer; the output pass (one
+    block per (chunk, h, b)) reads it. Two calls on
+    equal inputs give bitwise equal outputs."""
+    _check(r, k, v, logw, u, chunk)
+    o, S, states = buffers(r, chunk)
+    launch(r, k, v, logw, u, o, S, states, chunk=chunk)
     rwkv6_scan.launches += 1
     return o, S
 
 
-rwkv6_scan.launches = 0
+def reset_launches():
+    """Sets the call count and both passes' launch counts to 0."""
+    rwkv6_scan.launches = 0
+    rwkv6_scan.launches_by_pass = dict.fromkeys(PASSES, 0)
+
+
+reset_launches()

@@ -257,26 +257,87 @@ def test_flash_attention_matches_plain_version(cuda, dtype, B, H, KV, S, T,
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = flash_inputs(cuda, dtype, B, H, KV, S, T, hd, vd)
+    check_flash(q, k, v, causal, window, fa.body(q, k, v))
+
+
+def check_flash(q, k, v, causal, window, body):
+    """Two launches on `body` (counted there and nowhere else), bitwise
+    equal, within the allowance of the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    assert fa.body(q, k, v) == body
     launches = fa.flash_attention.launches
+    by_body = dict(fa.flash_attention.launches_by_body)
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     again = fa.flash_attention(q, k, v, causal=causal, window=window)
     plain = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == launches + 2
-    assert out.dtype == dtype and out.shape == plain.shape
+    assert fa.flash_attention.launches_by_body == {
+        b: n + 2 * (b == body) for b, n in by_body.items()}
+    assert out.dtype == q.dtype and out.shape == plain.shape
     assert torch.equal(out, again)
     # float32 throughout in both: 2e-5 of |plain| + 2e-6. The 16-bit kernel
     # rounds P to the input type (unit roundoff u) before P V, the plain
     # version keeps it in float32: test_kernels.py's bf16 tolerance of
     # |plain| + 4 u sqrt(sum_t p_t^2 v_t^2) (that rounding's error) + 1e-4
     err = (out.float() - plain.float()).abs()
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         allowed = 2e-5 * plain.float().abs() + 2e-6
     else:
-        u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
+        u = 2.0 ** -8 if q.dtype == torch.bfloat16 else 2.0 ** -11
         allowed = 2e-2 * plain.float().abs() + 1e-4 \
             + 4 * u * flash_spread(q, k, v, causal, window)
     assert bool((err <= allowed).all()), float((err / allowed).max())
+    return out
+
+
+# the wgmma body's shapes (16-bit, hd == vd in {64, 128}): ragged S and T,
+# a 128-key window, non-causal T != S, a single query row, and GQA 6:1 and
+# 8:1 (the served prefills' ratios)
+WGMMA_CASES = [
+    (1, 2, 2, 128, 128, 64, True, None),
+    (2, 6, 1, 200, 200, 128, True, None),
+    (1, 8, 1, 256, 256, 128, True, 128),
+    (1, 4, 1, 300, 300, 64, True, 128),
+    (2, 4, 2, 70, 130, 64, False, None),
+    (1, 6, 1, 130, 70, 128, False, None),
+    (1, 2, 1, 1, 77, 128, False, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("B, H, KV, S, T, hd, causal, window", WGMMA_CASES)
+def test_flash_wgmma_body_matches_plain_version(cuda, dtype, model_layout, B,
+                                                H, KV, S, T, hd, causal,
+                                                window):
+    q, k, v = flash_inputs(cuda, dtype, B, H, KV, S, T, hd)
+    if model_layout:   # (B, S, heads, hd) transposed, as the model hands over
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in (q, k, v))
+    out = check_flash(q, k, v, causal, window, "wgmma")
+    if model_layout:
+        from repro_torch.kernels import flash_attention as fa
+
+        assert torch.equal(out, fa.flash_attention(
+            *(x.contiguous() for x in (q, k, v)), causal=causal,
+            window=window))
+
+
+@pytest.mark.cuda
+def test_flash_other_16_bit_shapes_take_mma_sync(cuda):
+    """hd 96 / vd 64 (MLA), hd == vd off {64, 128}, and a 16-byte-aligned
+    shape read through rows of 136 elements with the base 2 bytes in."""
+    q, k, v = flash_inputs(cuda, torch.bfloat16, 1, 3, 1, 70, 130, 96, 64)
+    check_flash(q, k, v, False, None, "mma")
+    q, k, v = flash_inputs(cuda, torch.bfloat16, 2, 4, 2, 77, 77, 32)
+    check_flash(q, k, v, True, None, "mma")
+    q, k, v = flash_inputs(cuda, torch.bfloat16, 1, 4, 2, 96, 96, 128)
+    qp = torch.zeros((1, 4, 96, 136), dtype=q.dtype, device=cuda)
+    qp[..., 1:129] = q
+    check_flash(qp[..., 1:129], k, v, True, None, "mma")
 
 
 @pytest.mark.cuda
@@ -290,15 +351,19 @@ def test_flash_attention_takes_strided_views(cuda):
     assert not qt.is_contiguous()
     assert torch.equal(fa.flash_attention(qt, kt, vt),
                        fa.flash_attention(q, k, v))
-    # rows of 66 elements: not 16-byte aligned, so the tiles load element
-    # by element instead of by 16-byte copies; the arithmetic is the same
-    qp, kp, vp = (torch.zeros(*x.shape[:3], 66, dtype=x.dtype,
-                              device=x.device) for x in (q, k, v))
-    for dst, src in ((qp, q), (kp, k), (vp, v)):
-        dst[..., :64] = src
-    assert torch.equal(fa.flash_attention(qp[..., :64], kp[..., :64],
-                                          vp[..., :64]),
-                       fa.flash_attention(q, k, v))
+    # rows of 34 elements (68 bytes): not 16-byte aligned, so the mma.sync
+    # body loads its tiles element by element instead of by 16-byte copies;
+    # the arithmetic is the same. At hd 32 both layouts take mma.sync (at
+    # hd 64 the aligned one takes the wgmma body, the padded one mma.sync).
+    q32, k32, v32 = flash_inputs(cuda, torch.bfloat16, 2, 4, 2, 96, 96, 32)
+    qp, kp, vp = (torch.zeros(*x.shape[:3], 34, dtype=x.dtype,
+                              device=x.device) for x in (q32, k32, v32))
+    for dst, src in ((qp, q32), (kp, k32), (vp, v32)):
+        dst[..., :32] = src
+    padded = (qp[..., :32], kp[..., :32], vp[..., :32])
+    assert fa.body(*padded) == fa.body(q32, k32, v32) == "mma"
+    assert torch.equal(fa.flash_attention(*padded),
+                       fa.flash_attention(q32, k32, v32))
     with pytest.raises(TypeError):
         fa.flash_attention(q.float(), k, v)
     with pytest.raises(ValueError):
@@ -352,6 +417,30 @@ def test_rwkv6_scan_matches_plain_version(cuda, B, T, H, K, chunk, strong):
     assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(S).all())
     torch.testing.assert_close(o, po, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(S, pS, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("K", [16, 32, 64])
+@pytest.mark.parametrize("strong", [False, True])
+def test_rwkv6_scan_every_chunk_and_head_size(cuda, chunk, K, strong):
+    """Both passes at every chunk and K the kernel is built for, a ragged T
+    (and log w = -8): output and final state within 1e-4 (1 + |plain|),
+    two calls bitwise equal, each pass launched once per call."""
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    xs = rwkv_inputs(cuda, 2, 150, 3, K, strong)
+    by_pass = dict(rw.rwkv6_scan.launches_by_pass)
+    o, S = rw.rwkv6_scan(*xs, chunk=chunk)
+    o2, S2 = rw.rwkv6_scan(*xs, chunk=chunk)
+    po, pS = rw.rwkv6_scan_ref(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rw.rwkv6_scan.launches_by_pass == {
+        p: n + 2 for p, n in by_pass.items()}
+    assert torch.equal(o, o2) and torch.equal(S, S2)
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(S).all())
+    assert float(((o - po).abs() - 1e-4 * (1 + po.abs())).max()) <= 0
+    assert float(((S - pS).abs() - 1e-4 * (1 + pS.abs())).max()) <= 0
 
 
 @pytest.mark.cuda
