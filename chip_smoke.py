@@ -56,9 +56,13 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      kernel per launch (CUDA events) beside its bound, its plain version
      and, for attention, scaled_dot_product_attention (timed only), at
      both served attention shapes; rwkv6_scan also per pass;
-  6. traces one fleet solve, one deadline-fleet solve and one LM prefill
-     and decode step per configuration with torch.profiler: the card's
-     busy time and idle share, and the kernels that take the most time.
+     waterfill_gprime with the Halley steps its early exit takes on the
+     region (a plain replay of the exit rule);
+  6. traces one fleet solve, one deadline-fleet solve, one warm
+     Theorem-2 call on the region and one LM prefill and decode step per
+     configuration with torch.profiler: the card's
+     busy time and idle share, the kernels that take the most time, and
+     the port's own kernels.
 
 Each phase's seconds are printed as it ends.
 
@@ -160,6 +164,13 @@ SP1_OPS_PER_PAIR = 6 + 24 + 12 + 11 + 138 + 19 + 6 + 1
 # the denominator 6, its tiny guard 3, the step 2, the clamp 2); the
 # q < 1e-3 cut-over (2); the summand and the sum (5).
 WATERFILL_OPS_PER_PAIR = 1 + 37 + 24 * 17 + 2 + 5
+# The same count for the kernel's early-exit form at a given number of
+# Halley steps: the 45 operations around the loop, and per step its 17 and
+# the two bitwise exit tests (2). Recorded beside the bound as
+# `bound_fixed_point_ms`, at the steps a plain replay of the exit rule takes
+# on this run's input; the bound itself stays the 24-step function's.
+WATERFILL_OPS_OUTSIDE_HALLEY = 1 + 37 + 2 + 5
+WATERFILL_OPS_PER_EXIT_STEP = 17 + 2
 
 TOL_F64 = 1e-10   # relative (a zero sum must come out exactly zero)
 TOL_F32 = 1e-4    # relative to max(|sum|, 1e-6 * lam_hi * N)
@@ -168,8 +179,8 @@ TOL_F32 = 1e-4    # relative to max(|sum|, 1e-6 * lam_hi * N)
 # ln2 (its value at W + 1 = 1) floors it where W + 1 is large. float32 sums
 # up to 2^17 terms in two different orders, and near the branch point a
 # term's W + 1 ~ sqrt(2q) comes out of -1 + p(...) with ~6e-8 / sqrt(2q) of
-# relative rounding, which the kernel's fused multiply-adds and the plain
-# version's separate operations round differently.
+# relative rounding, so a last-bit difference between the two versions'
+# exp, log or sums is amplified there.
 WF_TOL_F64, WF_TOL_F32 = 1e-10, 1e-4
 
 
@@ -981,11 +992,40 @@ def phase_times(torch, kernels):
                                WATERFILL_OPS_PER_PAIR * C * M * N, "float32")
     kernels[1].update(times)
     record("kernel_times", kernel="waterfill_gprime", C=C, M=M, N=N,
-           dtype="float32", **times, **extra)
+           dtype="float32", **times, **extra, **halley_steps(torch, args))
 
     kernels[2].update(flash_time(torch))
     kernels[3].update(rwkv_time(torch))
     kernels[4].update(mamba_time(torch))
+
+
+def halley_steps(torch, args):
+    """The Halley steps of `waterfill_gprime`'s (m, n) pairs on `args` under
+    the kernel's exit rule, replayed in plain PyTorch on the card
+    (`waterfill.lambertw_early_exit`; the kernel counts nothing): the mean
+    over lanes, the mean over warps (32 adjacent devices of one candidate,
+    as the kernel lays them out: a warp runs as many steps as its slowest
+    lane; lanes past N take none), the largest, and the operations bound of
+    the early-exit form at these steps. The kernel's products are never fused
+    into multiply-adds, so it rounds as the plain version does, and these
+    are the kernel's steps where its exp and log round as PyTorch's do."""
+    from repro_torch.kernels import waterfill
+
+    mu, j, _, _ = args
+    q = mu[:, :, None] / j[:, None, :]
+    _, steps = waterfill.lambertw_early_exit(q)
+    pad = -j.shape[1] % 32
+    warp_steps = torch.nn.functional.pad(steps, (0, pad)).reshape(
+        *steps.shape[:2], -1, 32).amax(-1)
+    ops = WATERFILL_OPS_OUTSIDE_HALLEY * steps.numel() \
+        + WATERFILL_OPS_PER_EXIT_STEP * float(steps.double().sum())
+    return dict(halley_steps_lane_mean=float(steps.double().mean()),
+                halley_steps_warp_mean=float(warp_steps.double().mean()),
+                halley_steps_max=int(steps.max()),
+                halley_steps_at_cap_share=float(
+                    (steps == waterfill.HALLEY_STEPS).double().mean()),
+                bound_fixed_point_ms=ops / PEAK_OPS_S["float32"] * 1e3,
+                bound_fixed_point_ops=ops)
 
 
 def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
@@ -1104,8 +1144,10 @@ def trace(torch, label, problem, spec):
 
 
 def phase_profile(torch):
-    """The fleet solve and the deadline-fleet solve, traced."""
+    """The fleet solve, the deadline-fleet solve and one warm Theorem-2
+    call on the region, traced."""
     from repro_torch import Problem, SolverSpec, Weights, solve
+    from repro_torch.core.sp2 import solve_sp2_v2_thm2
 
     fleet = fleet_system(torch, torch.float32)
     spec = SolverSpec(max_iters=FLEET_ITERS)
@@ -1113,6 +1155,18 @@ def phase_profile(torch):
     trace(torch, "fleet", problem, spec)
     deadline, _ = deadline_problem(torch, fleet, solve(problem, spec))
     trace(torch, "deadline_fleet", deadline, spec)
+
+    region = region_system(torch, torch.float32)
+    rmin, nu, beta = thm2_instance(torch, region)
+    w = Weights(*WEIGHTS)
+    solve_sp2_v2_thm2(region, w, nu, beta, rmin)
+    (_, counts, reads, _), rec = trace_call(torch, lambda: counted(
+        torch, lambda: solve_sp2_v2_thm2(region, w, nu, beta, rmin)))
+    record("profile", topology="region_thm2", N=REGION_N, dtype="float32",
+           host_reads=reads, launches=counts, **rec)
+    check(counts["waterfill_gprime"] == 4,
+          f"region: {counts['waterfill_gprime']} waterfill_gprime launches "
+          "in the traced Theorem-2 call, want 4")
 
 
 # ---------------------------------------------------------------------------
@@ -1338,7 +1392,7 @@ def mamba_inputs(torch, B, T, D, N, dt_max=None, seed=4):
 
 def mamba_cases():
     """(B, T, D, N, dt_max): tests/test_kernels.py's shapes, ragged T and D
-    (no multiple of the 64-step tile or the 16-channel block), one step,
+    (no multiple of the 16-step tile or the 128-channel block), one step,
     the strong decay (dt up to 5, dt A down to -80), and the
     jamba-1.5-large prefill (last)."""
     from repro_torch.configs import get_config
@@ -1431,10 +1485,15 @@ def serve_argv():
             "--gen", str(LM_GEN), "--seed", str(LM_SEED), "--device", "cuda"]
 
 
+# the port's own kernels in a profile (csrc/*.cu: anonymous namespaces)
+PORT_KERNEL_KEY = re.compile(
+    r"\(anonymous namespace\)::(sp1_|waterfill_|flash_|rwkv6_|mamba_scan)")
+
+
 def trace_call(torch, fn):
     """fn() under torch.profiler: its wall time, the card's busy time and
-    idle share, and the kernels that take the most time. Returns (fn's
-    result, record)."""
+    idle share, the kernels that take the most time, and each of the
+    port's own kernels that ran. Returns (fn's result, record)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1455,7 +1514,10 @@ def trace_call(torch, fn):
         kernel_launches=sum(e.count for e in gpu),
         top_kernels=[dict(name=e.key[:80], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3)
-                     for e in top])
+                     for e in top],
+        port_kernels=[dict(name=e.key[:80], calls=e.count,
+                           device_ms=e.self_device_time_total / 1e3)
+                      for e in gpu if PORT_KERNEL_KEY.search(e.key)])
 
 
 def phase_lm_serve(torch):

@@ -94,9 +94,9 @@ def mamba_scan(dt: Tensor, A: Tensor, Bt: Tensor, Ct: Tensor,
     """CUDA kernel: selective scan -> (y (B, T, D), h_end (B, D, N)).
 
     dt, x, Bt, Ct may be strided views with a contiguous last dimension.
-    One thread per (b, d, n) recurrence walks the time steps; the sum over
-    n has a fixed order, so two launches on equal inputs give bitwise
-    equal outputs."""
+    One thread per (b, d) channel walks the time steps with its N states in
+    registers and sums y over n from 0 up, a fixed order, so two launches
+    on equal inputs give bitwise equal outputs."""
     _check(dt, A, Bt, Ct, x)
     B, T, D = x.shape
     N = A.shape[1]

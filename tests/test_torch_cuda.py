@@ -130,8 +130,34 @@ def test_waterfill_gprime_matches_plain_version(cuda, dtype, n):
     # scale: the positive sum g + B_total, at least Sigma rmin ln2. In
     # float32 a term near the branch point has W + 1 ~ sqrt(2q) formed from
     # -1 + p(...), so its relative rounding is ~6e-8 / sqrt(2q) (4e-5 at
-    # q = 1e-6), and the kernel's fused multiply-adds round it differently
-    # from the plain version's separate operations
+    # q = 1e-6), so a last-bit difference between the two versions' exp,
+    # log or sums is amplified there
+    scale = torch.maximum((plain + b_total[:, None]).abs(),
+                          rmin.sum(-1, keepdim=True) * math.log(2.0))
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert float(((out - plain).abs() / scale).max()) <= tol
+    assert torch.equal(out < 0, plain < 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m, n", [(1, 1000), (17, 1000), (128, 1000),
+                                  (1, 1), (17, 1), (128, 1)])
+def test_waterfill_gprime_candidate_tiles_and_one_device(cuda, dtype, m, n):
+    """M = 17 leaves the last tile of 8 candidates with 1; N = 1000 leaves
+    the last block of 256 devices with 232 (a ragged warp); N = 1 is one
+    live lane."""
+    xs = waterfill_inputs(cuda, dtype, n, m=m)
+    launches = waterfill.waterfill_gprime.launches
+    out = waterfill.waterfill_gprime(*xs)
+    again = waterfill.waterfill_gprime(*xs)
+    plain = waterfill.waterfill_gprime_ref(*xs)
+    torch.cuda.synchronize()
+    assert out.shape == (2, m)
+    assert waterfill.waterfill_gprime.launches == launches + 2
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out).all())
+    mu, j, rmin, b_total = xs
     scale = torch.maximum((plain + b_total[:, None]).abs(),
                           rmin.sum(-1, keepdim=True) * math.log(2.0))
     tol = 1e-10 if dtype == torch.float64 else 1e-4
@@ -496,6 +522,38 @@ def test_mamba_scan_matches_plain_version(cuda, B, T, D, N, dt_max):
     torch.cuda.synchronize()
     assert ms.mamba_scan.launches == launches + 2
     assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, py, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, ph, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("B, T, D, pad", [
+    (2, 1, 50, 0),        # one step; D not a multiple of 4 (4-byte copies)
+    (1, 13, 65, 0),       # T not a multiple of the 16-step tile, D of 128
+    (2, 100, 130, 2),     # strided dt and x (rows of 132: 16-byte copies)
+    (1, 29, 1001, 3),     # rows of 1004: a last copy of one channel
+    (3, 64, 256, 0),      # whole tiles and blocks
+])
+def test_mamba_scan_ragged_tiles_and_blocks(cuda, B, T, D, pad, N):
+    """dt and x as views of (B, T, D + pad) tensors; y and the final state
+    against the plain version, bitwise repeatable and the same on
+    contiguous Bt / Ct."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    dt, A, Bt, Ct, x = mamba_inputs(cuda, B, T, D + pad, N)
+    dt, x, A = dt[..., :D], x[..., :D], A[:D].contiguous()
+    launches = ms.mamba_scan.launches
+    y, h = ms.mamba_scan(dt, A, Bt, Ct, x)
+    y2, h2 = ms.mamba_scan(dt, A, Bt, Ct, x)
+    y3, h3 = ms.mamba_scan(dt, A, Bt.contiguous(), Ct.contiguous(), x)
+    py, ph = ms.mamba_scan_ref(dt, A, Bt, Ct, x)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == launches + 3
+    assert y.shape == (B, T, D) and h.shape == (B, D, N)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert torch.equal(y, y3) and torch.equal(h, h3)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     torch.testing.assert_close(y, py, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(h, ph, rtol=1e-4, atol=1e-4)

@@ -14,6 +14,18 @@
   `repro.kernels.ref.rwkv6_ref` (which computes in float32: 1e-5 relative
   and absolute) and against the same recurrence in float64 (the
   decomposition is exact: 1e-10).
+* The early exit of `csrc/waterfill.cu`'s Halley loop, replayed in plain
+  torch (`waterfill.lambertw_early_exit`: each lane stops at the first
+  iterate that repeats the one or the two before it bit for bit, a fixed
+  point or a two-cycle), against the 24 fixed steps
+  of `_lambertw_vec`: the same bits in float32 and float64, on a reduced
+  Theorem-2 region cell, at the branch point (q in [1e-6, 1e-2]) and at
+  large q (z > 3), with at most 24 steps a lane.
+* The register form of `csrc/mamba_scan.cu` (one channel's N states
+  stepped in order of t, the decay as exp2(dt (A log2 e)), y summed over n
+  from 0 up), rendered in plain torch float32, against the JAX package's
+  `repro.kernels.ref.mamba_scan_ref` and the port's plain version, to
+  1e-4 (1 + |plain|), with the strong decay and ragged T and D.
 """
 import numpy as np
 import pytest
@@ -26,6 +38,9 @@ from repro.kernels import ref as jref
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
+from repro_torch.kernels import waterfill as wf
+from test_torch_cuda import mamba_inputs
 
 SERVED = ("internlm2-20b", "jamba-1.5-large-398b")
 
@@ -219,3 +234,135 @@ def test_pair_factors_never_exceed_one():
         fac = pair_factors(clw, clw - wc)
         assert bool((fac <= 1.0 + 1e-12).all())
         assert bool(torch.isfinite(fac).all())
+
+
+# ---------------------------------------------------------------------------
+# waterfill_gprime: Halley stopped at its bitwise fixed point
+# ---------------------------------------------------------------------------
+
+def region_ratios(dtype, n=2048, seed=17):
+    """q = mu / j of the Theorem-2 dual search's first sweep over a reduced
+    region cell (examples/allocate_fleet.py section 3 at n devices: 20 MHz
+    per 50, f = 1 GHz, s = 320, T = 1.2 x the slowest compute time, weights
+    (0.5, 0.5, 1.0)), as `core/sp2.py::_thm2_dual_mu` forms it: (1, 128, n)."""
+    from repro_torch import make_system
+    from repro_torch.core.energy import t_cmp
+    from repro_torch.core.sp1 import _cells_view, _geomspace
+    from repro_torch.core.sp2 import (G, _clamp_rmin, _thm2_bracket, _thm2_j,
+                                      r_min)
+    from repro_torch.core.types import Weights
+
+    sysp = make_system(seed, n_devices=n, device="cpu", dtype=torch.float64,
+                       bandwidth_total=20e6 * n / 50).to(dtype=dtype)
+    shape = sysp.gain.shape
+    f = torch.full(shape, 1e9, dtype=dtype)
+    s = torch.full(shape, 320.0, dtype=dtype)
+    rmin = r_min(sysp, f, s, t_cmp(sysp, f, s).amax(-1, keepdim=True) * 1.2)
+    rate0 = G(sysp, torch.broadcast_to(sysp.p_max, shape),
+              torch.broadcast_to(sysp.bandwidth_total / n, shape))
+    nu = Weights(0.5, 0.5, 1.0).normalized().w1 * sysp.global_rounds / rate0
+    b, (nu, rmin) = _cells_view(sysp, nu, rmin)
+    rmin = _clamp_rmin(b, rmin)
+    j = _thm2_j(b, nu)
+    mu = _geomspace(*_thm2_bracket(b, j, rmin), 128)
+    return mu[:, :, None] / j[:, None, :]
+
+
+def halley_ratios(case, dtype):
+    if case == "region":
+        return region_ratios(dtype)
+    if case == "branch_point":
+        return torch.logspace(-6, -2, 20000, dtype=torch.float64).to(dtype)
+    # z = (q - 1)/e > 3 up to 1e30
+    return torch.logspace(np.log10(3 * np.e + 1) + 1e-6, 30, 20000,
+                          dtype=torch.float64).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["region", "branch_point", "large_q"])
+def test_halley_exit_gives_the_24_step_bits(case, dtype, record_property):
+    q = halley_ratios(case, dtype)
+    if case == "large_q":
+        assert bool((((q - 1) / np.e) > 3).all())
+    fixed = wf._lambertw_vec(q)
+    w, steps = wf.lambertw_early_exit(q)
+    assert w.dtype == dtype and steps.shape == q.shape
+    assert torch.equal(wf._bits(w), wf._bits(fixed))
+    series = q < 1e-3            # the series value: no Halley step
+    assert bool((steps[series] == 0).all())
+    assert bool((steps[~series] >= 1).all())
+    assert int(steps.max()) <= wf.HALLEY_STEPS
+    assert bool(torch.isfinite(w).all())
+    if case == "region" and dtype == torch.float32:
+        # lanes whose iterates end in a two-cycle of the last bits, not a
+        # fixed point: the rule's second test is exercised here
+        _, zc, _, w_i = wf._lambertw_seed(q)
+        hist = [w_i]
+        for _ in range(wf.HALLEY_STEPS):
+            hist.append(wf._halley_step(hist[-1], zc))
+        last = [wf._bits(h) for h in hist[-3:]]
+        assert bool(((last[2] == last[0]) & (last[2] != last[1])).any())
+    mean = float(steps.double().mean())
+    record_property("halley_steps_mean", mean)
+    print(f"{case} {dtype}: {mean:.3f} Halley steps a lane on average, "
+          f"at most {int(steps.max())}")
+
+
+def test_halley_exit_keeps_nan_and_the_cap():
+    """A NaN ratio gives the 24-step NaN's bits; a cap of k steps gives the
+    k-step W's bits."""
+    q = torch.tensor([float("nan"), 0.0, 1e-3, 1.0, 2.5, 1e12])
+    for iters in (1, 3, 24):
+        w, steps = wf.lambertw_early_exit(q, iters)
+        assert torch.equal(wf._bits(w), wf._bits(wf._lambertw_vec(q, iters)))
+        assert int(steps.max()) <= iters
+
+
+# ---------------------------------------------------------------------------
+# mamba_scan: a channel's N states in one thread's registers
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def mamba_register_form(dt, A, Bt, Ct, x):
+    """The kernel's arithmetic per (b, d) channel, all channels at once:
+    h[n] <- exp2(dt (A[n] log2 e)) h[n] + (dt B_t[n]) x_t, then
+    y_t = h[0] C_t[0] + h[1] C_t[1] + ... in order of n. float32."""
+    Bsz, T, D = x.shape
+    N = A.shape[1]
+    al = A * torch.tensor(LOG2E, dtype=torch.float32)
+    h = torch.zeros((Bsz, D, N), dtype=torch.float32)
+    ys = []
+    for t in range(T):
+        dtv, xv = dt[:, t, :, None], x[:, t, :, None]
+        a = torch.exp2(dtv * al)
+        h = a * h + (dtv * Bt[:, t, None, :]) * xv
+        y = h[..., 0] * Ct[:, t, None, 0]
+        for n in range(1, N):
+            y = y + h[..., n] * Ct[:, t, None, n]
+        ys.append(y)
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("B, T, D, N, dt_max", [
+    (1, 64, 128, 8, None),
+    (2, 37, 33, 8, None),        # ragged T and D
+    (1, 100, 50, 16, None),
+    (1, 1, 16, 16, None),        # one step
+    (1, 200, 64, 16, 5.0),       # strong decay: dt A down to -80
+    (2, 45, 70, 16, 5.0),
+])
+def test_mamba_register_form_matches_references(B, T, D, N, dt_max):
+    dt, A, Bt, Ct, x = mamba_inputs("cpu", B, T, D, N, dt_max)
+    if dt_max is not None:
+        assert float(dt.max() * A.min()) < -75.0
+    y, h = mamba_register_form(dt, A, Bt, Ct, x)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    py, ph = ms.mamba_scan_ref(dt, A, Bt, Ct, x)
+    jy, jh = jref.mamba_scan_ref(*(jnp.asarray(a.numpy())
+                                   for a in (dt, A, Bt, Ct, x)))
+    for got, plain in ((y, py), (h, ph), (y, torch.tensor(np.asarray(jy))),
+                       (h, torch.tensor(np.asarray(jh)))):
+        assert float(((got - plain).abs()
+                      - 1e-4 * (1 + plain.abs())).max()) <= 0.0
