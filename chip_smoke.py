@@ -53,9 +53,13 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      decode steps): internlm2-20b, rwkv6-1.6b, jamba-1.5-large-398b and
      mixtral-8x7b;
   5. times the warm fleet and deadline-fleet solves (median of 3) and each
-     kernel per launch (CUDA events) beside its bound, its plain version
-     and, for attention, scaled_dot_product_attention (timed only), at
-     both served attention shapes; rwkv6_scan also per pass;
+     kernel per launch, by CUDA events over back-to-back wrapper calls
+     (`ms`, the host included) and by torch.profiler's device time of its
+     own kernels (`device_ms`), beside its bound, its plain version and,
+     for attention, scaled_dot_product_attention (timed only), at both
+     served attention shapes; rwkv6_scan also per pass; sp1_lambda_sum
+     also in float64 and with the SASS instructions of its candidate loop
+     (cuobjdump), one (m, n) pair a trip;
      waterfill_gprime with the Halley steps its early exit takes on the
      region (a plain replay of the exit rule);
   6. traces one fleet solve, one deadline-fleet solve, one warm
@@ -148,13 +152,36 @@ PEAK_OPS_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 # 132 SMs at the 1.98 GHz boost clock
 SFU_EXP_S = 16 * 132 * 1.98e9
 
-# Floating-point operations of one lambda_n(T) evaluation in
-# lambda_of_T_linear, counting each add, multiply, divide, compare/select,
-# sqrt, cbrt and pow as one: 6 shared (t_c, q_safe, alpha, k3_safe),
-# 2 x 12 f-clipped and 2 x 6 s-clipped candidates, 11 for the interior one,
-# 6 x 23 for the clip-and-validate of each candidate, 19 for the best /
-# near-tie pick, 6 for the unattainable-deadline test, and 1 for the sum.
-SP1_OPS_PER_PAIR = 6 + 24 + 12 + 11 + 138 + 19 + 6 + 1
+# Floating-point operations of sp1_lambda_sum, counting each add, multiply,
+# divide, compare-and-select, sqrt, cbrt and pow of lambda_of_T_linear as
+# one, each where it first can be formed: per (m, n) pair, per device (c, n)
+# or per cell c. The clip-and-validate of a candidate is 24: the NaN select
+# 1, the clip to [0, lam_hi] 2, lam / k3_safe 1, cbrt 1, the f clip 2,
+# max(f, 1e-9) 1, psi 7 (2 alpha, f f, their product, 2 lam, times q, over
+# fs, the sum), max(psi, tiny) 1, rhok / psi 1, the s clip 2, q s^2 / fs 3,
+# the difference from t_c and its magnitude 2.
+# Per pair: t_c 2; per f-clipped candidate 8 (t_c F / q_safe and its sqrt
+# 3, rhok / max(s, tiny) 2, the difference, times F, over 2 q_safe 3); per
+# s-clipped one 4 (q S^2 / t_c 1, k3 f^3 3); the interior one 7 (q t_c, its
+# clamp and ^-0.2, the product with the cell's factor, k3 f^3 3); the
+# lambda = 0 candidate's |mk0 - t_c| 2; the other five validates less
+# 2 alpha, 23 each; the pick 18 (the best of 6 5, the tie bar 2, 6
+# near-tie selects, the least of 6 5); the unattainable test 2; the sum 1.
+SP1_OPS_PER_PAIR = 2 + 2 * 8 + 2 * 4 + 7 + 2 + 5 * 23 + 18 + 2 + 1
+# Where the deadline is unattainable (makespan floor > t_c) the result is
+# lam_hi whatever the candidates give: such a pair needs t_c, the test, the
+# select and the sum.
+SP1_OPS_PER_SATURATED_PAIR = 2 + 2 + 1
+# Per device: q_safe 1, alpha 1, 2 alpha 1, 2 alpha F^2 2, 2 q_safe 1,
+# q S^2 2, the makespan floor 1, and the lambda = 0 candidate's makespan 11
+# (2 alpha f0^2 1, 2 lam0 q 1, over fs0 1, the sum 1, max(psi, tiny) 1,
+# rhok / psi 1, the s clip 2, q s^2 / fs0 3).
+SP1_OPS_PER_DEVICE = 1 + 1 + 1 + 2 + 1 + 2 + 1 + 11
+# Per cell: k3_safe 1, 0.5 k3 1, F^2 2, S^2 2, (rhok / max(3 k3, tiny))^0.4
+# 4, max(f_max, 1e-9) 1, the lambda = 0 candidate's clip and f0 8 (the NaN
+# select, the clip 2, lam / k3_safe, cbrt, the f clip 2, max(f, 1e-9)),
+# f0^2 1 and 2 lam0 1.
+SP1_OPS_PER_CELL = 1 + 1 + 2 + 2 + 4 + 1 + 8 + 1 + 1
 
 # Floating-point operations of one (m, n) pair of waterfill_gprime, counted
 # the same way (exp, log, sqrt and division as one each): the ratio
@@ -242,11 +269,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    sources = build.sources()
     t0 = time.perf_counter()
-    built = build.build()
+    built = build.build(sources)
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_entries(build.log_path(name).read_text())
-             for name in build.sources()}
+             for name in sources}
     record("env", card=smi, device=torch.cuda.get_device_name(0),
            count=torch.cuda.device_count(), torch=torch.__version__,
            cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -261,11 +289,8 @@ def main():
         record("phase_seconds", name=name, seconds=seconds[name])
         return out
 
-    kernels = [phase("sp1_kernel", phase_sp1_kernel),
-               phase("waterfill_kernel", phase_waterfill_kernel),
-               phase("flash_kernel", phase_flash_kernel),
-               phase("rwkv_kernel", phase_rwkv_kernel),
-               phase("mamba_kernel", phase_mamba_kernel)]
+    kernels = [phase(name, check_fn)
+               for _, name, check_fn, _ in KERNELS.values()]
     fleet_run = phase("main_path", phase_main_path)
     kernels[0]["launches"] = fleet_run["launches"]["sp1_lambda_sum"]
     region_run = phase("region_sp2", phase_region_sp2)
@@ -934,13 +959,45 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_time(torch, kernel, plain, args, reps, plain_reps, ops, dtype):
-    """ms per launch of `kernel` (CUDA events; the timing launches do not
-    count on the main path), ms of its plain version, and its bound: the
-    larger of the bytes it must move (each input read once, the output
-    written once) at HBM peak and its counted operations at `dtype`'s peak."""
+def device_ms(torch, fn, reps, key):
+    """Device milliseconds per call of `fn`, from `reps` calls under
+    torch.profiler after a warm-up call: for every kernel whose name
+    matches the pattern `key` (each launched once per call), its self
+    device time over the launches the profile caught, summed over those
+    kernels. The profile can miss the first few launches it traces, so
+    each kernel is averaged over its own count. Event timing of
+    back-to-back calls measures the host once a kernel is faster than its
+    wrapper; this reads the card alone. Returns (ms, {kernel: {"launches":
+    caught, "ms": its device ms per launch}})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = {e.key[:80]: dict(launches=e.count,
+                             ms=e.self_device_time_total / 1e3 / e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and re.search(key, e.key)
+            and e.count}
+    check(hits, f"device_ms: the profile shows no kernel matching {key!r}")
+    return sum(h["ms"] for h in hits.values()), hits
+
+
+def kernel_time(torch, kernel, plain, args, reps, plain_reps, ops, dtype,
+                key):
+    """ms per launch of `kernel` (CUDA events), its device ms (`device_ms`
+    over the kernels matching `key`; neither run counts on the main path),
+    ms of its plain version, and its bound: the larger of the bytes it must
+    move (each input read once, the output written once) at HBM peak and
+    its counted operations at `dtype`'s peak."""
     saved = saved_counts(kernel)
     ms = event_ms(torch, lambda: kernel(*args), reps)
+    dev_ms, dev_kernels = device_ms(torch, lambda: kernel(*args), reps, key)
     restore_counts(kernel, saved)
     plain_ms = event_ms(torch, lambda: plain(*args), plain_reps)
     out = plain(*args)
@@ -948,16 +1005,140 @@ def kernel_time(torch, kernel, plain, args, reps, plain_reps, ops, dtype):
         + out.numel() * out.element_size()
     bytes_ms = moved / PEAK_BYTES_S * 1e3
     ops_ms = ops / PEAK_OPS_S[dtype] * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None), dict(bytes=moved, ops=ops,
                                        bytes_bound_ms=bytes_ms,
-                                       ops_bound_ms=ops_ms)
+                                       ops_bound_ms=ops_ms,
+                                       device_kernels=dev_kernels)
+
+
+def sass_loop(library, entry):
+    """The SASS of the kernel entry of `library` whose mangled name holds
+    `entry`, as cuobjdump prints it: the instructions (NOPs left out) of
+    its innermost loop that holds a special-function (MUFU) instruction,
+    with the MUFUs among them, and of the whole entry. In sp1_sweep.cu
+    that loop is the candidate loop, one (m, n) pair a trip: the pair's
+    lambda_n(T_m) and its step of the sum. Static counts: a branch that
+    skips work (or the tree sum nested in the loop) counts once."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", text)[1:]
+             if entry in f.split("\n", 1)[0]]
+    check(len(funcs) == 1, f"sass_loop: {len(funcs)} entries match {entry}")
+    labels, insts, pending = {}, [], []
+    for line in funcs[0].splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((p, addr) for p in pending)
+            pending = []
+            insts.append((addr, m.group(2)))
+    loops = []
+    for addr, ins in insts:
+        if not re.search(r"\bBRA\b", ins):
+            continue
+        t = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)\)?\s*$", ins)
+        target = None if t is None else (
+            int(t.group(1), 16) if t.group(1).startswith("0x")
+            else labels.get(t.group(1)))
+        if target is not None and target < addr:
+            loops.append((target, addr))
+    mufu = [a for a, ins in insts if re.search(r"\bMUFU\b", ins)]
+    inner = [lp for lp in loops if any(lp[0] <= a <= lp[1] for a in mufu)]
+    check(inner, f"sass_loop: no loop of {entry} holds a MUFU")
+    lo, hi = min(inner, key=lambda lp: lp[1] - lp[0])
+    body = [ins for a, ins in insts if lo <= a <= hi
+            and not re.match(r"(@\S+\s+)?NOP\b", ins)]
+    return dict(loop_instructions=len(body),
+                loop_mufu=sum(bool(re.search(r"\bMUFU\b", i)) for i in body),
+                entry_instructions=len(insts))
+
+
+def sp1_ops(torch, T_grid, q, tt, consts):
+    """The operations sp1_lambda_sum needs on these inputs (the count of
+    SP1_OPS_PER_PAIR and its neighbours), and the pairs whose deadline is
+    unattainable, found by lambda_of_T_linear's own test."""
+    C, M = T_grid.shape
+    N = q.shape[1]
+    t_c = torch.clamp_min(T_grid[:, :, None] - tt[:, None, :],
+                          torch.finfo(q.dtype).tiny)
+    s_lo, f_max = consts[:, 4, None, None], consts[:, 3, None, None]
+    floor = q[:, None, :] * (s_lo * s_lo) / torch.clamp_min(f_max, 1e-9)
+    saturated = int((floor > t_c).sum())
+    ops = SP1_OPS_PER_PAIR * (C * M * N - saturated) \
+        + SP1_OPS_PER_SATURATED_PAIR * saturated \
+        + SP1_OPS_PER_DEVICE * C * N + SP1_OPS_PER_CELL * C
+    return ops, saturated
+
+
+def sp1_time(torch):
+    """sp1_lambda_sum at the fleet shape (C=64, M=16, N=2048): float32 by
+    events and device time beside its bound and plain version, float64 the
+    same, and the SASS of the candidate loop (`sass_loop`) and ptxas's
+    registers and spills of every entry. library_ms: no single PyTorch
+    call computes the function."""
+    from repro_torch.kernels import build, sp1_sweep
+
+    row = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        args, _, _ = sweep_inputs(torch, fleet_system(torch, dtype))
+        C, M = args[0].shape
+        N = args[1].shape[1]
+        ops, saturated = sp1_ops(torch, *args)
+        times, extra = kernel_time(torch, sp1_sweep.sp1_lambda_sum,
+                                   sp1_sweep.sp1_lambda_sum_ref, args, 200,
+                                   10, ops, name,
+                                   DEVICE_KEYS["sp1_lambda_sum"])
+        sass = sass_loop(build.library_path("sp1_sweep"),
+                         {"float32": "sp1_partial_kernelIf",
+                          "float64": "sp1_partial_kernelId"}[name])
+        record("kernel_times", kernel="sp1_lambda_sum", C=C, M=M, N=N,
+               dtype=name, **times, **extra, saturated_pairs=saturated,
+               sass=sass)
+        if dtype == torch.float32:
+            row.update(times, sass_per_pair=sass["loop_instructions"])
+        else:
+            row.update(float64_ms=times["ms"],
+                       float64_device_ms=times["device_ms"],
+                       float64_bound_ms=times["bound_ms"],
+                       float64_sass_per_pair=sass["loop_instructions"])
+    row["ptxas"] = ptxas_entries(build.log_path("sp1_sweep").read_text())
+    return row
+
+
+def waterfill_time(torch):
+    """waterfill_gprime on the Theorem-2 region's first sweep (C=1, M=128,
+    N=2^17, float32), with the Halley steps of its exit rule. library_ms:
+    no PyTorch call computes Lambert W."""
+    from repro_torch.kernels import waterfill
+
+    region = region_system(torch, torch.float32)
+    rmin, nu, _ = thm2_instance(torch, region)
+    args = thm2_sweep_inputs(torch, region, nu, rmin)
+    C, M = args[0].shape
+    N = args[1].shape[1]
+    times, extra = kernel_time(torch, waterfill.waterfill_gprime,
+                               waterfill.waterfill_gprime_ref, args, 50, 3,
+                               WATERFILL_OPS_PER_PAIR * C * M * N, "float32",
+                               DEVICE_KEYS["waterfill_gprime"])
+    record("kernel_times", kernel="waterfill_gprime", C=C, M=M, N=N,
+           dtype="float32", **times, **extra, **halley_steps(torch, args))
+    return times
 
 
 def phase_times(torch, kernels):
     from repro_torch import Problem, SolverSpec, Weights
-    from repro_torch.kernels import sp1_sweep, waterfill
 
     fleet = fleet_system(torch, torch.float32)
     problem = Problem(system=fleet, weights=Weights(*WEIGHTS))
@@ -970,33 +1151,8 @@ def phase_times(torch, kernels):
            max_iters=FLEET_ITERS, walls_s=walls,
            median_s=statistics.median(walls), host_reads=reads,
            launches=counts)
-
-    # library_ms: no single PyTorch call computes either function
-    args, _, _ = sweep_inputs(torch, fleet)
-    C, M = args[0].shape
-    N = args[1].shape[1]
-    times, extra = kernel_time(torch, sp1_sweep.sp1_lambda_sum,
-                               sp1_sweep.sp1_lambda_sum_ref, args, 200, 10,
-                               SP1_OPS_PER_PAIR * C * M * N, "float32")
-    kernels[0].update(times)
-    record("kernel_times", kernel="sp1_lambda_sum", C=C, M=M, N=N,
-           dtype="float32", **times, **extra)
-
-    region = region_system(torch, torch.float32)
-    rmin, nu, _ = thm2_instance(torch, region)
-    args = thm2_sweep_inputs(torch, region, nu, rmin)
-    C, M = args[0].shape
-    N = args[1].shape[1]
-    times, extra = kernel_time(torch, waterfill.waterfill_gprime,
-                               waterfill.waterfill_gprime_ref, args, 50, 3,
-                               WATERFILL_OPS_PER_PAIR * C * M * N, "float32")
-    kernels[1].update(times)
-    record("kernel_times", kernel="waterfill_gprime", C=C, M=M, N=N,
-           dtype="float32", **times, **extra, **halley_steps(torch, args))
-
-    kernels[2].update(flash_time(torch))
-    kernels[3].update(rwkv_time(torch))
-    kernels[4].update(mamba_time(torch))
+    for k in kernels:
+        k.update(KERNELS[k["name"]][3](torch))
 
 
 def halley_steps(torch, args):
@@ -1030,22 +1186,26 @@ def halley_steps(torch, args):
 
 def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
                    dtype, reps, plain_reps, **extra):
-    """ms per launch of `fn` (CUDA events; its timing launches are taken
-    off `counter.launches`), of its plain version and of the library call,
-    and the bound: the larger of `moved` bytes at HBM peak and `ops` at
-    `dtype`'s peak. `extra` goes into the record only."""
+    """ms per launch of `fn` (CUDA events) and its device ms (`device_ms`;
+    the timing launches are taken off `counter.launches`), ms of its plain
+    version and of the library call, and the bound: the larger of `moved`
+    bytes at HBM peak and `ops` at `dtype`'s peak. `extra` goes into the
+    record only."""
     saved = saved_counts(counter)
     ms = event_ms(torch, fn, reps)
+    dev_ms, dev_kernels = device_ms(torch, fn, reps, DEVICE_KEYS[name])
     restore_counts(counter, saved)
     plain_ms = event_ms(torch, plain, plain_reps)
     library_ms = event_ms(torch, library, reps) if library else None
     bytes_ms = moved / PEAK_BYTES_S * 1e3
     ops_ms = ops / PEAK_OPS_S[dtype] * 1e3
-    times = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+    times = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                 bound_ms=max(bytes_ms, ops_ms),
                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                  library_ms=library_ms)
     record("kernel_times", kernel=name, dtype=dtype, **times, bytes=moved,
-           ops=ops, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, **extra)
+           ops=ops, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+           device_kernels=dev_kernels, **extra)
     return times
 
 
@@ -1485,9 +1645,15 @@ def serve_argv():
             "--gen", str(LM_GEN), "--seed", str(LM_SEED), "--device", "cuda"]
 
 
-# the port's own kernels in a profile (csrc/*.cu: anonymous namespaces)
+# each kernel's device entries in a profile, by the name of its wrapper,
+# and all the port's own kernels (csrc/*.cu: anonymous namespaces)
+DEVICE_KEYS = {"sp1_lambda_sum": r"::sp1_",
+               "waterfill_gprime": r"::waterfill_",
+               "flash_attention": r"::flash_",
+               "rwkv6_scan": r"::rwkv6_",
+               "mamba_scan": r"::mamba_scan"}
 PORT_KERNEL_KEY = re.compile(
-    r"\(anonymous namespace\)::(sp1_|waterfill_|flash_|rwkv6_|mamba_scan)")
+    r"\(anonymous namespace\)(" + "|".join(DEVICE_KEYS.values()) + ")")
 
 
 def trace_call(torch, fn):
@@ -1666,6 +1832,20 @@ def phase_lm_card_vs_cpu(torch):
         check(card_n == prefill_launches(cfg) and not any(cpu_n.values()),
               f"{arch} reduced: kernel launches card {card_n}, cpu {cpu_n}")
     record("lm_card_vs_cpu", cases=rows)
+
+
+# each kernel: its source in csrc/, the phase that holds it against its
+# plain version (and its name), and its timing for the kernel_times record
+KERNELS = {
+    "sp1_lambda_sum": ("sp1_sweep", "sp1_kernel", phase_sp1_kernel, sp1_time),
+    "waterfill_gprime": ("waterfill", "waterfill_kernel",
+                         phase_waterfill_kernel, waterfill_time),
+    "flash_attention": ("flash_attention", "flash_kernel",
+                        phase_flash_kernel, flash_time),
+    "rwkv6_scan": ("rwkv6_scan", "rwkv_kernel", phase_rwkv_kernel, rwkv_time),
+    "mamba_scan": ("mamba_scan", "mamba_kernel", phase_mamba_kernel,
+                   mamba_time),
+}
 
 if __name__ == "__main__":
     try:

@@ -31,7 +31,8 @@ Tensor = torch.Tensor
 
 # consts row layout: index -> meaning
 N_CONSTS = 8   # [k3, rho_slope, f_min, f_max, s_lo, s_hi, lam_hi, unused]
-# devices per CUDA block (one per thread); a power of two for the tree sum
+# devices per CUDA block (one per thread); a power of two from 32 to 256, as
+# the C entry requires
 BLOCK_N = 256
 
 
@@ -161,8 +162,9 @@ def sp1_lambda_sum(T_grid: Tensor, q: Tensor, tt: Tensor,
     """CUDA kernel: Sigma_n lambda_n(T) per cell and candidate, (C, M).
 
     One launch covers every cell. The sum over devices runs in a fixed
-    order (a tree in each block, then the blocks in index order), so equal
-    inputs give bitwise equal sums on every run. Lanes past N add exactly 0.
+    order (a shuffle butterfly in each warp, then the warps in order, then
+    the blocks in index order), so equal inputs give bitwise equal sums on
+    every run. Lanes past N add exactly 0.
     """
     _check(T_grid, q, tt, consts)
     C, M = T_grid.shape

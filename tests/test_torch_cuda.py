@@ -100,6 +100,135 @@ def test_solve_on_the_card_runs_the_kernel(cuda):
     assert torch.equal(res.iters.cpu(), cpu.iters)
 
 
+def kernel_order_sum(lam, block=sp1_sweep.BLOCK_N):
+    """Sigma_n lam (C, M, N) -> (C, M) in csrc/sp1_sweep.cu's order: the
+    devices in blocks of `block` (lanes past N add exact zeros), per warp
+    of 32 lanes a shuffle butterfly (lane l takes lane l + 16, then l + 8,
+    + 4, + 2, + 1), the warps of a block in order, then the blocks in order
+    from 0."""
+    C, M, N = lam.shape
+    blocks = -(-N // block)
+    x = torch.nn.functional.pad(lam, (0, blocks * block - N)).reshape(
+        C, M, blocks, block // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    warps = x[..., 0]
+    acc = warps[..., 0]
+    for w in range(1, warps.shape[-1]):
+        acc = acc + warps[..., w]
+    out = torch.zeros((C, M), dtype=lam.dtype, device=lam.device)
+    for b in range(blocks):
+        out = out + acc[..., b]
+    return out
+
+
+def assert_sp1_matches_plain(out, plain, consts, n):
+    """The kernel's sums against the plain version's at the tolerances of
+    `test_sp1_lambda_sum_matches_plain_version`."""
+    if out.dtype == torch.float64:
+        scale, tol = plain.abs().clamp_min(torch.finfo(out.dtype).tiny), 1e-10
+    else:
+        scale, tol = torch.maximum(plain.abs(), 1e-6 * consts[:, 6:7] * n), \
+            1e-4
+    assert float(((out - plain).abs() / scale).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C", [1, 3, 64])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 257, 2049])
+@pytest.mark.parametrize("M", [1, 8, 15, 16, 17, 40])
+def test_sp1_lambda_sum_every_tile_and_block_edge(cuda, M, N, C, dtype):
+    """M around the 16-candidate tile, N around a warp and a 256-device
+    block, C up to the fleet's 64 cells: bitwise repeatable, finite, within
+    the plain version's tolerance, one count per call."""
+    xs = sweep_inputs(cuda, dtype, N, cells=C, points=M)
+    launches = sp1_sweep.sp1_lambda_sum.launches
+    out = sp1_sweep.sp1_lambda_sum(*xs)
+    again = sp1_sweep.sp1_lambda_sum(*xs)
+    plain = sp1_sweep.sp1_lambda_sum_ref(*xs)
+    torch.cuda.synchronize()
+    assert out.shape == (C, M)
+    assert sp1_sweep.sp1_lambda_sum.launches == launches + 2
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out).all())
+    assert_sp1_matches_plain(out, plain, xs[3], N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 31, 33, 257, 2049])
+def test_sp1_lambda_sum_lanes_past_n_add_zero(cuda, dtype, n):
+    """At T = 0 no device can meet its deadline and every live lane's term
+    is lam_hi exactly; at T = 1e30 every device meets it at lambda = 0. The
+    sums must be the fixed-order sums of those terms bit for bit, and 0:
+    a lane past N that added anything but 0 would show."""
+    T, q, tt, consts = sweep_inputs(cuda, dtype, n, cells=3, points=4)
+    T = torch.cat([torch.zeros_like(T), torch.full_like(T, 1e30)], 1)
+    out = sp1_sweep.sp1_lambda_sum(T, q, tt, consts)
+    torch.cuda.synchronize()
+    lam_hi = consts[:, 6, None, None].expand(-1, 4, n)
+    assert torch.equal(out[:, :4], kernel_order_sum(lam_hi.contiguous()))
+    assert torch.equal(out[:, 4:], torch.zeros_like(out[:, 4:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, points", [(1, 16), (33, 17), (2049, 16)])
+def test_sp1_lambda_sum_w1_zero_is_finite(cuda, dtype, n, points):
+    """w1 = 0 makes k3 = 0: the guards keep every term finite."""
+    xs = sweep_inputs(cuda, dtype, n, w=(0.0, 1.0, 1.0), points=points)
+    assert bool((xs[3][:, 0] == 0).all())
+    out = sp1_sweep.sp1_lambda_sum(*xs)
+    plain = sp1_sweep.sp1_lambda_sum_ref(*xs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert_sp1_matches_plain(out, plain, xs[3], n)
+
+
+@pytest.mark.cuda
+def test_sp1_lambda_sum_counts_one_launch_per_call(cuda):
+    xs = sweep_inputs(cuda, torch.float32, 300)
+    before = sp1_sweep.sp1_lambda_sum.launches
+    for _ in range(3):
+        sp1_sweep.sp1_lambda_sum(*xs)
+    assert sp1_sweep.sp1_lambda_sum.launches == before + 3
+    with pytest.raises(TypeError):                # refused: not counted
+        sp1_sweep.sp1_lambda_sum(xs[0].double(), *xs[1:])
+    assert sp1_sweep.sp1_lambda_sum.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n, takes", [(0, False), (16, False),
+                                             (48, False), (512, False),
+                                             (1024, False), (32, True),
+                                             (64, True), (128, True),
+                                             (256, True)])
+def test_sp1_entry_takes_only_its_block_shapes(cuda, block_n, takes):
+    """The C entry takes blocks of 32 to 256 devices, a power of two, and
+    refuses any other with cudaErrorInvalidValue before launching."""
+    T, q, tt, consts = sweep_inputs(cuda, torch.float32, 300)
+    C, M = T.shape
+    N = q.shape[1]
+    chunks = -(-N // max(block_n, 1))
+    partials = torch.empty((C, chunks, M), dtype=T.dtype, device=cuda)
+    out = torch.full((C, M), float("nan"), dtype=T.dtype, device=cuda)
+    lib = sp1_sweep._lib()
+    rc = lib.sp1_lambda_sum_f32(
+        T.data_ptr(), q.data_ptr(), tt.data_ptr(), consts.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), C, M, N, block_n,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if not takes:
+        assert rc != 0
+        assert lib.sp1_error_string(rc) == b"invalid argument"
+        assert bool(torch.isnan(out).all())
+        return
+    assert rc == 0
+    assert_sp1_matches_plain(out, sp1_sweep.sp1_lambda_sum_ref(
+        T, q, tt, consts), consts, N)
+
+
 def waterfill_inputs(device, dtype, n, cells=2, m=128, seed=5):
     """A multiplier grid across the branch point (q = mu/j from ~1e-6 up)
     and far above it, over device coefficients of the SP2 dual's scale."""

@@ -26,6 +26,15 @@
   from 0 up), rendered in plain torch float32, against the JAX package's
   `repro.kernels.ref.mamba_scan_ref` and the port's plain version, to
   1e-4 (1 + |plain|), with the strong decay and ragged T and D.
+* The hoisted form of `csrc/sp1_sweep.cu` (per-cell and per-device terms
+  formed once, the lambda = 0 candidate's makespan per device, the
+  unattainable floor first), rendered in torch, against
+  `lambda_of_T_linear` bit for bit in float32 and float64: a reduced fleet
+  on the three sweep rounds' T grids, w1 = 0, q = tt = 0 lanes,
+  unattainable and NaN deadlines. Its sums in the kernel's order (warp
+  butterfly, warps, blocks) stay within chip_smoke's tolerances of
+  `sp1_lambda_sum_ref` and pick the same bracket. The kernel's float32
+  shortcuts (reciprocal products, lg2/ex2, rsqrt) are held on the card.
 """
 import numpy as np
 import pytest
@@ -366,3 +375,191 @@ def test_mamba_register_form_matches_references(B, T, D, N, dt_max):
                        (h, torch.tensor(np.asarray(jh)))):
         assert float(((got - plain).abs()
                       - 1e-4 * (1 + plain.abs())).max()) <= 0.0
+
+
+# ---------------------------------------------------------------------------
+# sp1_lambda_sum: per-cell and per-device terms hoisted, fixed-order sums
+# ---------------------------------------------------------------------------
+
+def sp1_fleet_inputs(dtype, weights=(0.5, 0.5, 1.0), cells=4, n=2048,
+                     seed=31):
+    """A reduced fleet (the main path's fleet at C=4, 20 MHz per 50
+    devices) at its initial allocation: q, tt (C, N), the kernel's consts
+    rows (C, 8), the sweep's target (C, 1) and its T bounds."""
+    from repro_torch import make_fleet
+    from repro_torch.api.problem import weights_leaf
+    from repro_torch.core.accuracy import default_accuracy
+    from repro_torch.core.bcd import initial_allocation
+    from repro_torch.core.energy import rate
+    from repro_torch.core.sp1 import _coeffs, _sp1_bounds, _sweep_consts
+    from repro_torch.core.types import Weights
+
+    b = make_fleet(seed, cells, n, device="cpu", dtype=dtype,
+                   bandwidth_total=20e6 * n / 50).batched()
+    alloc = initial_allocation(b)
+    tt = b.bits / torch.clamp_min(rate(b, alloc.bandwidth, alloc.power),
+                                  1e-12)
+    warr = weights_leaf(Weights(*weights), dtype, b.device, cells=cells)
+    w = Weights(warr[:, 0:1], torch.clamp_min(warr[:, 1:2], 1e-9),
+                warr[:, 2:3])
+    _, q = _coeffs(b, w)
+    lam_hi, target, T_lo, T_hi = _sp1_bounds(b, w, q, tt)
+    consts = _sweep_consts(b, w, default_accuracy(), lam_hi)
+    return q.contiguous(), tt.contiguous(), consts, target, T_lo, T_hi
+
+
+def sp1_sweep_grids(q, tt, consts, target, T_lo, T_hi):
+    """The T grids of the sweep's three rounds, as
+    `core/sp1.py::_solve_sp1_sweep_impl` builds them, side by side:
+    (C, 3 x 16)."""
+    from repro_torch.core.sp1 import (_SWEEP_POINTS, _SWEEP_ROUNDS, _bracket,
+                                      _geomspace)
+    from repro_torch.kernels import sp1_sweep
+
+    grids, lo, hi = [], T_lo, T_hi
+    for _ in range(_SWEEP_ROUNDS):
+        grid = _geomspace(lo, hi, _SWEEP_POINTS)
+        grids.append(grid)
+        lo, hi, _, _ = _bracket(sp1_sweep.sp1_lambda_sum_ref(
+            grid.contiguous(), q, tt, consts), target, grid)
+    return torch.cat(grids, -1).contiguous()
+
+
+def sp1_hoisted_form(T_grid, q, tt, consts):
+    """lambda_n(T_m) (C, M, N) as `csrc/sp1_sweep.cu` computes it in its
+    IEEE form (float64; float32 before its cheaper forms), in torch: each
+    term that depends only on the cell is formed at (C, 1, 1) and only on
+    the device at (C, 1, N), with the kernel's association order (2 alpha,
+    2 alpha F^2, q S^2, 2 q_safe, the floor); the lambda = 0 candidate's
+    forward makespan once per device, not per pair; the unattainable floor
+    decides first. Returns (lambda, the hoisted lambda = 0 error, the same
+    error as the plain version forms it per pair). The cube roots run on a
+    (6, C, M, N) stack laid out as `lambda_of_T_linear`'s (row 0 is the
+    lambda = 0 candidate and only gives the per-pair error compared
+    against), so PyTorch's vectorised and scalar pow paths, whose last bits
+    differ, meet the same elements in both."""
+    from repro_torch.kernels.sp1_sweep import _cbrt, _clip
+
+    tiny = torch.finfo(q.dtype).tiny
+    k3, rhok, f_min, f_max, s_lo, s_hi, lam_hi = (
+        consts[:, i, None, None] for i in range(7))
+    # per cell
+    k3_safe = torch.clamp_min(k3, tiny)
+    f6_cell = (rhok / torch.clamp_min(3.0 * k3, tiny)) ** 0.4
+    F = (f_min, f_max)
+    FF = (f_min * f_min, f_max * f_max)
+    SS = (s_lo * s_lo, s_hi * s_hi)
+    lam0 = _clip(torch.zeros_like(lam_hi), 0.0, lam_hi)
+    f0 = _clip(_cbrt(lam0 / k3_safe), f_min, f_max)
+    fs0 = torch.clamp_min(f0, 1e-9)
+    fmax_safe = torch.clamp_min(f_max, 1e-9)
+
+    def makespan(lam, f, fs, q, two_alpha):
+        psi = two_alpha * (f * f) + 2.0 * lam * q / fs
+        s = _clip(rhok / torch.clamp_min(psi, tiny), s_lo, s_hi)
+        return q * (s * s) / fs
+
+    # per device
+    q, tt = q[:, None, :], tt[:, None, :]
+    q_safe = torch.clamp_min(q, tiny)
+    two_alpha = 2.0 * (0.5 * k3 * q)
+    a2F = [two_alpha * FF[i] for i in range(2)]
+    two_q = 2.0 * q_safe
+    qSS = [q * SS[i] for i in range(2)]
+    floor = qSS[0] / fmax_safe
+    mk0 = makespan(lam0, f0, fs0, q, two_alpha)
+    # per pair
+    t_c = torch.clamp_min(T_grid[:, :, None] - tt, tiny)
+    cands = [(rhok / torch.clamp_min(torch.sqrt(t_c * F[i] / q_safe), tiny)
+              - a2F[i]) * F[i] / two_q for i in range(2)]
+    for i in range(2):
+        f = qSS[i] / t_c
+        cands.append(k3 * (f * f * f))
+    f6 = f6_cell * torch.clamp_min(q * t_c, tiny) ** -0.2
+    cands.append(k3 * (f6 * f6 * f6))
+    lam = torch.stack(torch.broadcast_tensors(lam0, *cands))
+    lam = torch.where(torch.isnan(lam), lam_hi, _clip(lam, 0.0, lam_hi))
+    f = _clip(_cbrt(lam / k3_safe), f_min, f_max)
+    err = torch.abs(makespan(lam, f, torch.clamp_min(f, 1e-9), q, two_alpha)
+                    - t_c)
+    err0 = torch.abs(mk0 - t_c)
+    err = torch.cat([err0.expand_as(t_c)[None], err[1:]])
+    best = err.amin(0)
+    near = err <= best * (1.0 + 1e-6) + tiny
+    out = torch.where(near, lam, torch.full_like(lam, float("inf"))).amin(0)
+    return torch.where(floor > t_c, lam_hi, out), err0, err[0]
+
+
+def sp1_design_case(case, dtype):
+    """(T_grid, q, tt, consts) of each case the hoisted form is held to."""
+    weights = (0.0, 1.0, 1.0) if case == "w1_zero" else (0.5, 0.5, 1.0)
+    q, tt, consts, target, T_lo, T_hi = sp1_fleet_inputs(dtype, weights)
+    grid = sp1_sweep_grids(q, tt, consts, target, T_lo, T_hi)
+    if case == "zero_lanes":                 # q = tt = 0: lambda exactly 0
+        q, tt = q.clone(), tt.clone()
+        q[:, ::5] = 0.0
+        tt[:, ::5] = 0.0
+    elif case == "unattainable":             # below every floor up to T_lo
+        grid = T_lo * torch.logspace(-3, 0, 16, dtype=dtype)
+    elif case == "nan":
+        grid = grid.clone()
+        grid[:, ::3] = float("nan")
+    return grid.contiguous(), q, tt, consts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["fleet", "w1_zero", "zero_lanes",
+                                  "unattainable", "nan"])
+def test_sp1_hoisted_form_gives_the_plain_bits(case, dtype):
+    from repro_torch.kernels import sp1_sweep
+
+    T_grid, q, tt, consts = sp1_design_case(case, dtype)
+    lam, err0, err0_per_pair = sp1_hoisted_form(T_grid, q, tt, consts)
+    plain = sp1_sweep.lambda_of_T_linear(
+        T_grid[:, :, None], q[:, None, :], tt[:, None, :],
+        *(consts[:, i, None, None] for i in range(7)))
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(err0.expand_as(err0_per_pair).view(bits),
+                       err0_per_pair.view(bits))
+    assert torch.equal(lam.view(bits), plain.view(bits))
+    lam_hi = consts[:, 6, None, None]
+    if case == "zero_lanes":
+        assert bool((lam[..., ::5] == 0).all())
+    if case == "unattainable":                # the floor decides first
+        k = consts[:, :, None, None]
+        floor = q[:, None, :] * (k[:, 4] * k[:, 4]) / k[:, 3]
+        unmet = floor > torch.clamp_min(T_grid[:, :, None] - tt[:, None, :],
+                                        torch.finfo(dtype).tiny)
+        assert bool(unmet[:, 0].all())        # 1e-3 T_lo: no device
+        assert bool((lam == lam_hi)[unmet].all())
+    if case == "nan":                         # no deadline: lambda = inf
+        assert bool(torch.isinf(lam[:, ::3]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2048, 1500])
+def test_sp1_kernel_order_sums_stay_within_tolerance(n, dtype):
+    """The terms summed in the kernel's order (`kernel_order_sum`: warp
+    butterfly, warps, blocks) against `sp1_lambda_sum_ref`, at
+    chip_smoke's tolerances for this kernel, and the same bracket pick on
+    every round's grid."""
+    from repro_torch.core.sp1 import _bracket
+    from repro_torch.kernels import sp1_sweep
+    from test_torch_cuda import kernel_order_sum
+
+    q, tt, consts, target, T_lo, T_hi = sp1_fleet_inputs(dtype, n=n)
+    grid = sp1_sweep_grids(q, tt, consts, target, T_lo, T_hi)
+    lam, _, _ = sp1_hoisted_form(grid, q, tt, consts)
+    out = kernel_order_sum(lam)
+    plain = sp1_sweep.sp1_lambda_sum_ref(grid, q, tt, consts)
+    if dtype == torch.float64:
+        scale, tol = plain.abs().clamp_min(torch.finfo(dtype).tiny), 1e-10
+    else:
+        scale, tol = torch.maximum(plain.abs(), 1e-6 * consts[:, 6:7] * n), \
+            1e-4
+    assert float(((out - plain).abs() / scale).max()) <= tol
+    for r in range(3):
+        cols = slice(16 * r, 16 * (r + 1))
+        picks = [_bracket(S[:, cols], target, grid[:, cols])[:2]
+                 for S in (out, plain)]
+        assert all(torch.equal(a, b) for a, b in zip(*picks))
