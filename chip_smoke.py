@@ -15,7 +15,10 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      float64 for the solver kernels, float32 and bf16 for attention,
      float32 for RWKV6 and the Mamba scan with their final states), checks
      that two launches on the same inputs agree bitwise and that kernel
-     and plain sums pick the same bracket; records which attention body
+     and plain sums pick the same bracket; sp1_lambda_sum also on the
+     padded pool's zero-data lanes (q = tt = 0 inside N) and an all-zero
+     cell, in float32 and float64: each cell's sums against the kernel
+     over its non-zero prefix alone, the all-zero cell's exactly 0.0; records which attention body
      (wgmma, mma.sync or SIMT) each case takes, counted per body, and
      checks that the served prefill shapes, also as the model's transposed
      views, take the wgmma body;
@@ -31,6 +34,20 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          `waterfill_gprime` launches per call and no host read;
        - the deadline-constrained fleet (C=64 x N=2048, float32), each
          cell's deadline 1.2 x its free-deadline total time;
+       - a padded pool: 64 cells of 1025..2048 devices (seed 31), each
+         padded to bucket_size = 2048 with masked lanes (`pad_system`) and
+         solved as one stack: feasible, pad lanes at B = 0 and zero energy
+         exactly, 3 SP1 launches per batched iteration; 4 of its cells
+         re-solved unpadded in float64 against their padded solves;
+       - the round-dynamics engine (`Problem.rounds`) on the C=64 x N=2048
+         fleet: 8 rounds of Markov fading, stale participation, dropout
+         0.05, 8 warm-started BCD iterations a round; every round's
+         allocation feasible, 3 SP1 launches per batched iteration of
+         every round;
+       - implicit gradients (`repro_torch.diff.solve_and_grad`, 30 Neumann
+         steps) on the same fleet: values against `solve`'s, every
+         gradient finite, and on a 4-cell padded pool every pad lane's
+         gradient exactly 0;
        - LM serving through `repro_torch.launch.serve.main` for
          internlm2-20b (dense GQA) and rwkv6-1.6b (RWKV6) at full width and
          depth, and jamba-1.5-large-398b (hybrid Mamba + MoE) at full width
@@ -51,7 +68,9 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      iterations) and with the log accuracy model, and 4 fleet cells under
      per-cell deadlines; and the reduced LMs in float32 (prefill and four
      decode steps): internlm2-20b, rwkv6-1.6b, jamba-1.5-large-398b and
-     mixtral-8x7b;
+     mixtral-8x7b; and in float64 the rounds engine on 4 cells x 64
+     devices from one set of draws, and solve_and_grad on those 4 cells
+     (Neumann) and on the paper cell (the dense adjoint);
   5. times the warm fleet and deadline-fleet solves (median of 3) and each
      kernel per launch, by CUDA events over back-to-back wrapper calls
      (`ms`, the host included) and by torch.profiler's device time of its
@@ -104,6 +123,39 @@ FIG8_N, FIG8_SEED, FIG8_PMAX_DBM = 12, 7, 10.0
 FIG8_WEIGHTS, FIG8_DEADLINES, FIG8_ITERS = (0.99, 0.01, 1.0), (80.0, 120.0,
                                                              200.0), 6
 DEADLINE_SLACK = 1.2
+# The padded pool: FLEET_C cells of N_c devices, N_c uniform in
+# PAD_N_LO..FLEET_N from PAD_SEED (the systems drawn from a generator of
+# the same seed), each padded to bucket_size(N_c) = FLEET_N with masked
+# lanes and solved as one (C, N) stack; PAD_F64_CELLS of them re-solved
+# unpadded in float64 against their padded float64 solves.
+PAD_N_LO, PAD_SEED, PAD_F64_CELLS = 1025, 31, 4
+PAD_PREFIX_TOL = 1e-9
+# The rounds fleet: the main path's fleet through R rounds of the
+# round-dynamics engine, its draws from a torch.Generator of ROUNDS_SEED.
+ROUNDS = dict(rounds=8, channel_mode="markov", drift_rho=0.9,
+              participation="stale", dropout_prob=0.05, bcd_iters=8)
+ROUNDS_SEED = 5
+# Card vs CPU of the rounds engine and of solve_and_grad, float64: 4 cells
+# of CPU_N devices.
+CPU_N, CPU_ROUNDS = 64, dict(rounds=4, channel_mode="markov",
+                             participation="stale", dropout_prob=0.05,
+                             deadline_slack=0.98)
+# solve_and_grad's values are one differentiable BCD step (its SP1 the
+# nested bisection) past the forward solve's last iterate, which moves the
+# objective by about the BCD tolerance plus the sweep's secant precision:
+# 1.4e-5 .. 2.3e-5 relative on a 4 x 64 fleet on the CPU, <= 1.06e-5 on
+# the C=64 x N=2048 fleet on the card
+GRAD_VALUE_TOL = 1e-4
+# Gradients card vs CPU, float64. They are not reproducible to 1e-8: on the
+# CPU alone, gains moved by one ulp move the 4-cell Neumann gradients by up
+# to 1.1e-6 (the run measures it again: `ulp_spread`), and the dense
+# adjoint's I - Phi_x^T is numerically singular on the paper cell
+# (condition ~1e20, measured in the run), so its solution is set by the
+# LU's rounding: cuSOLVER's and LAPACK's differ. Values are held to 1e-8.
+GRAD_CPU_TOL, DENSE_CPU_TOL = 1e-5, 1e-3
+# the SP2 dual search's eval count rides data-dependent exits (ROADMAP
+# Queue 3): per BCD iteration, card vs CPU
+EV_SLACK_PER_ITER = 8
 # Algorithm 1 runs ~100k small launches per SP2_v2 solve; the paper cell's
 # "jong" comparison is cut to 3 BCD x 5 Algorithm-1 iterations (the
 # reference's defaults are 20 x 30) to stay inside the run's time limit.
@@ -300,6 +352,13 @@ def main():
         k["launches"] = sum(r["launches"][k["name"]]
                             for r in serve_runs.values())
     phase("deadline_fleet", phase_deadline_fleet)
+    sp1_paths = {"main_path": fleet_run["launches"]["sp1_lambda_sum"]}
+    for name, fn in (("padded_fleet", phase_padded_fleet),
+                     ("rounds_fleet", phase_rounds_fleet),
+                     ("grad", phase_grad)):
+        sp1_paths[name] = phase(name, fn)["launches"]["sp1_lambda_sum"]
+    kernels[0]["launches"] = sum(sp1_paths.values())
+    kernels[0]["launches_by_path"] = sp1_paths
     phase("card_vs_cpu", phase_card_vs_cpu)
     phase("paper_paths", phase_paper_paths)
     phase("lm_card_vs_cpu", phase_lm_card_vs_cpu)
@@ -371,10 +430,114 @@ def bracket_index(torch, S, target):
 # phases
 # ---------------------------------------------------------------------------
 
+def sp1_case(torch, args, target, n_edge, where):
+    """One sp1_lambda_sum case against its plain version: finite, two
+    launches bitwise equal, within the dtype's tolerance (beyond the tied
+    devices at T_lo), the same bracket pick. Returns (case record, kernel
+    sums, abs err off the edge column)."""
+    from repro_torch.kernels import sp1_sweep
+
+    dtype = args[1].dtype
+    tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+    c, n = args[1].shape
+    out = sp1_sweep.sp1_lambda_sum(*args)
+    again = sp1_sweep.sp1_lambda_sum(*args)
+    plain = sp1_sweep.sp1_lambda_sum_ref(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()),
+          f"sp1_lambda_sum: non-finite sums ({where})")
+    check(torch.equal(out, again),
+          f"sp1_lambda_sum: two launches differ ({where})")
+    lam_hi = args[3][:, 6:7]
+    floor = 1e-6 * lam_hi * n if dtype == torch.float32 \
+        else torch.full_like(plain, torch.finfo(dtype).tiny)
+    scale = torch.maximum(plain.abs(), floor)
+    err = (out - plain).abs()
+    # The first grid point is T_lo = max makespan floor * (1 + 1e-12), and
+    # 1 + 1e-12 rounds to 1 in float32: a device whose floor lies within
+    # ulps of T_lo sits on its attainability edge, where every lambda from
+    # its corner value up to lam_hi ties in makespan and rounding picks
+    # one. There the two versions may differ by up to lam_hi per such
+    # device (n_edge, counted from the inputs: 1 per cell in float32, 0 in
+    # float64); every other grid point is held to the tolerance, and the
+    # bracket pick must agree.
+    edge = n_edge.to(dtype)[:, None] * lam_hi
+    cols = slice(1, None) if bool((n_edge > 0).any()) else slice(None)
+    rel = float((err / scale)[:, cols].max())
+    abs_err = float(err[:, cols].max())
+    edge_err = float((err[:, :1] - edge).max())
+    same_bracket = torch.equal(bracket_index(torch, out, target),
+                               bracket_index(torch, plain, target))
+    case = dict(dtype=str(dtype).removeprefix("torch."), C=c,
+                M=args[0].shape[1], N=n, max_rel_err=rel, max_abs_err=abs_err,
+                tol=tol, n_edge=int(n_edge.max()),
+                edge_abs_err=float(err[:, 0].max()),
+                edge_excess_over_tie=edge_err, same_bracket=same_bracket)
+    check(rel <= tol, f"sp1_lambda_sum: kernel vs plain rel err "
+                      f"{rel:.3g} > {tol:g} ({where})")
+    check(bool((err[:, :1] <= edge + tol * scale[:, :1]).all()),
+          f"sp1_lambda_sum: at T_lo kernel and plain differ by "
+          f"{edge_err:.3g} beyond {int(n_edge.max())} tied device(s) "
+          f"({where})")
+    check(same_bracket, f"sp1_lambda_sum: kernel and plain sums pick "
+                        f"different brackets ({where})")
+    return case, out, abs_err
+
+
+def sp1_zero_lane_case(torch, dtype):
+    """The padded pool's sweep inputs (cell c: N_c real devices, then
+    FLEET_N - N_c zero-data lanes, q = 0 and tt = 0, inside N), with the
+    last cell made all zero-data on its own finite grid: kernel against
+    plain as every case, each zero lane's plain lambda exactly 0, each
+    cell's sums against the kernel over its non-zero prefix alone, and the
+    all-zero cell's sums exactly 0.0."""
+    from repro_torch.kernels import sp1_sweep
+
+    pool, _, sizes = padded_pool(torch, dtype)
+    (grid, q, tt, consts), target, n_edge = sweep_inputs(torch, pool)
+    q[-1], tt[-1] = 0.0, 0.0
+    sizes = sizes[:-1] + [0]
+    args = (grid, q, tt, consts)
+    where = f"zero-data lanes, {dtype}"
+    case, out, _ = sp1_case(torch, args, target, n_edge, where)
+    k = [consts[:, i, None, None] for i in range(7)]
+    lam = sp1_sweep.lambda_of_T_linear(grid[:, :, None], q[:, None, :],
+                                       tt[:, None, :], *k)
+    lanes = torch.arange(FLEET_N, device=q.device)
+    pad = lanes[None, :] >= torch.tensor(sizes, device=q.device)[:, None]
+    plain_zero = bool((lam.masked_select(pad[:, None, :]) == 0).all())
+    prefix_rel, bitwise = 0.0, 0
+    tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+    for c, n in enumerate(sizes[:-1]):
+        alone = sp1_sweep.sp1_lambda_sum(
+            grid[c:c + 1].contiguous(), q[c:c + 1, :n].contiguous(),
+            tt[c:c + 1, :n].contiguous(), consts[c:c + 1].contiguous())
+        scale = alone.abs().clamp_min(
+            1e-6 * float(consts[c, 6]) * n if dtype == torch.float32
+            else torch.finfo(dtype).tiny)
+        prefix_rel = max(prefix_rel,
+                         float(((out[c:c + 1] - alone).abs() / scale).max()))
+        bitwise += int(torch.equal(out[c:c + 1], alone))
+    zero_cell = out[-1].tolist()
+    case.update(zero_lanes=int(pad.sum()),
+                tails=[min(FLEET_N - n for n in sizes[:-1]),
+                       max(FLEET_N - n for n in sizes[:-1])],
+                plain_zero_lanes_exact=plain_zero,
+                prefix_max_rel_err=prefix_rel,
+                prefix_bitwise_cells=bitwise, zero_cell_sums=zero_cell)
+    check(plain_zero, f"sp1_lambda_sum: a zero-data lane's plain lambda is "
+                      f"not 0 ({where})")
+    check(prefix_rel <= tol, f"sp1_lambda_sum: a cell's sums differ from "
+                             f"its non-zero prefix's by {prefix_rel:.3g} "
+                             f"({where})")
+    check(all(x == 0.0 for x in zero_cell),
+          f"sp1_lambda_sum: the all-zero cell sums to {zero_cell} ({where})")
+    return case
+
+
 def phase_sp1_kernel(torch):
     """sp1_lambda_sum against its plain version on the card."""
     from repro_torch import make_system
-    from repro_torch.kernels import sp1_sweep
 
     inputs = [(dtype, fleet_system(torch, dtype, FLEET_C if n == FLEET_N
                                    else 4, n), weights, n == FLEET_N)
@@ -388,55 +551,15 @@ def phase_sp1_kernel(torch):
     main_abs_err = 0.0
     cases = []
     for dtype, sysp, weights, on_main_path in inputs:
-        tol = TOL_F32 if dtype == torch.float32 else TOL_F64
         args, target, n_edge = sweep_inputs(torch, sysp, weights)
-        c, n = args[1].shape
-        out = sp1_sweep.sp1_lambda_sum(*args)
-        again = sp1_sweep.sp1_lambda_sum(*args)
-        plain = sp1_sweep.sp1_lambda_sum_ref(*args)
-        torch.cuda.synchronize()
-        where = f"C={c}, N={n}, w1={weights[0]}, {dtype}"
-        check(bool(torch.isfinite(out).all()),
-              f"sp1_lambda_sum: non-finite sums ({where})")
-        check(torch.equal(out, again),
-              f"sp1_lambda_sum: two launches differ ({where})")
-        lam_hi = args[3][:, 6:7]
-        floor = 1e-6 * lam_hi * n if dtype == torch.float32 \
-            else torch.full_like(plain, torch.finfo(dtype).tiny)
-        scale = torch.maximum(plain.abs(), floor)
-        err = (out - plain).abs()
-        # The first grid point is T_lo = max makespan floor * (1 + 1e-12),
-        # and 1 + 1e-12 rounds to 1 in float32: a device whose floor lies
-        # within ulps of T_lo sits on its attainability edge, where every
-        # lambda from its corner value up to lam_hi ties in makespan and
-        # rounding picks one. There the two versions may differ by up to
-        # lam_hi per such device (n_edge, counted from the inputs: 1 per
-        # cell in float32, 0 in float64); every other grid point is held
-        # to the tolerance, and the bracket pick must agree.
-        edge = n_edge.to(dtype)[:, None] * lam_hi
-        cols = slice(1, None) if bool((n_edge > 0).any()) else slice(None)
-        rel = float((err / scale)[:, cols].max())
-        abs_err = float(err[:, cols].max())
-        edge_err = float((err[:, :1] - edge).max())
-        same_bracket = torch.equal(bracket_index(torch, out, target),
-                                   bracket_index(torch, plain, target))
+        where = f"C={args[1].shape[0]}, N={args[1].shape[1]}, " \
+                f"w1={weights[0]}, {dtype}"
+        case, _, abs_err = sp1_case(torch, args, target, n_edge, where)
+        cases.append(dict(case, w1=weights[0]))
         if on_main_path:
             main_abs_err = max(main_abs_err, abs_err)
-        cases.append(dict(dtype=str(dtype).removeprefix("torch."),
-                          C=c, M=args[0].shape[1], N=n, w1=weights[0],
-                          max_rel_err=rel, max_abs_err=abs_err, tol=tol,
-                          n_edge=int(n_edge.max()),
-                          edge_abs_err=float(err[:, 0].max()),
-                          edge_excess_over_tie=edge_err,
-                          same_bracket=same_bracket))
-        check(rel <= tol, f"sp1_lambda_sum: kernel vs plain rel err "
-                          f"{rel:.3g} > {tol:g} ({where})")
-        check(bool((err[:, :1] <= edge + tol * scale[:, :1]).all()),
-              f"sp1_lambda_sum: at T_lo kernel and plain differ by "
-              f"{edge_err:.3g} beyond {int(n_edge.max())} tied device(s) "
-              f"({where})")
-        check(same_bracket, f"sp1_lambda_sum: kernel and plain sums pick "
-                            f"different brackets ({where})")
+    for dtype in (torch.float32, torch.float64):
+        cases.append(sp1_zero_lane_case(torch, dtype))
     record("kernel_vs_plain", kernel="sp1_lambda_sum", cases=cases)
     return dict(name="sp1_lambda_sum", route="cuda",
                 source="src/repro_torch/kernels/csrc/sp1_sweep.cu",
@@ -829,6 +952,321 @@ def phase_deadline_fleet(torch):
     return run
 
 
+def padded_pool(torch, dtype, n_cells=None):
+    """The padded pool's first `n_cells` (default all FLEET_C) cells
+    (PAD_SEED; see the constants), each padded to bucket_size(N_c),
+    stacked. Returns (pool, the unpadded cells, their sizes)."""
+    from repro_torch import bucket_size, make_system, pad_system, \
+        stack_systems
+
+    sizes = torch.randint(PAD_N_LO, FLEET_N + 1, (FLEET_C,),
+                          generator=torch.Generator().manual_seed(PAD_SEED))
+    sizes = sizes.tolist()[:FLEET_C if n_cells is None else n_cells]
+    gen = torch.Generator().manual_seed(PAD_SEED)
+    cells = [make_system(gen, n, device="cuda", dtype=dtype,
+                         bandwidth_total=20e6 * n / 50) for n in sizes]
+    check(all(bucket_size(n) == FLEET_N for n in sizes),
+          "padded pool: a cell's bucket is not FLEET_N")
+    pool = stack_systems([pad_system(c, bucket_size(n))
+                          for c, n in zip(cells, sizes)])
+    return pool, cells, sizes
+
+
+def pad_lanes_neutral(torch, sysp, alloc):
+    """(every pad lane's B is 0, every pad lane's energy is 0), exactly."""
+    from repro_torch.core.energy import e_cmp, e_trans
+
+    pad = ~sysp.active
+    B = alloc.bandwidth[pad]
+    e = (e_trans(sysp, alloc.bandwidth, alloc.power)
+         + e_cmp(sysp, alloc.freq, alloc.resolution))[pad]
+    return (torch.equal(B, torch.zeros_like(B)),
+            torch.equal(e, torch.zeros_like(e)))
+
+
+def phase_padded_fleet(torch):
+    """A mixed-size pool padded onto one bucket and solved as one stack:
+    feasible, pad lanes neutral, 3 SP1 launches per batched iteration; the
+    first PAD_F64_CELLS cells re-solved unpadded in float64 against their
+    padded float64 solves."""
+    from repro_torch import Problem, SolverSpec, Weights, solve, \
+        stack_systems
+
+    pool, _, sizes = padded_pool(torch, torch.float32)
+    spec = SolverSpec(max_iters=FLEET_ITERS)
+    problem = Problem(system=pool, weights=Weights(*WEIGHTS))
+    res, counts, reads, wall = counted_solve(torch, problem, spec)
+    batched = int(res.iters.max())
+    feas = feasible_cells(torch, pool, res.allocation)
+    b_zero, e_zero = pad_lanes_neutral(torch, pool, res.allocation)
+    _, _, _, wall2 = counted_solve(torch, problem, spec)
+
+    pool64, cells64, _ = padded_pool(torch, torch.float64, PAD_F64_CELLS)
+    r64 = solve(Problem(system=pool64, weights=Weights(*WEIGHTS)), spec)
+    prefix_rel, same_iters = 0.0, True
+    for c, cell in enumerate(cells64):
+        one = solve(Problem(system=cell, weights=Weights(*WEIGHTS)), spec)
+        same_iters &= one.iters == int(r64.iters[c])
+        for f in ("bandwidth", "power", "freq", "resolution"):
+            a = getattr(r64.allocation, f)[c, :cell.n]
+            b = getattr(one.allocation, f)
+            prefix_rel = max(prefix_rel,
+                             float((a - b).abs().max() / b.abs().max()))
+    obj = res.objective.double()
+    run = dict(C=FLEET_C, N=FLEET_N, dtype="float32", max_iters=FLEET_ITERS,
+               devices=[min(sizes), max(sizes)], real_devices=sum(sizes),
+               first_call_s=wall, second_call_s=wall2, launches=counts,
+               host_reads=reads, batched_iters=batched,
+               iters=res.iters.cpu().tolist(),
+               converged=int(res.converged.sum()), feasible=feas,
+               pad_bandwidth_zero=b_zero, pad_energy_zero=e_zero,
+               mean_objective=float(obj.mean()),
+               objective_finite=bool(torch.isfinite(obj).all()),
+               f64_cells=PAD_F64_CELLS, f64_prefix_max_rel_diff=prefix_rel,
+               f64_same_iters=same_iters)
+    record("padded_fleet", **run)
+    check(run["objective_finite"] and all(feas.values()),
+          f"padded fleet: infeasible or non-finite result {feas}")
+    check(b_zero and e_zero, "padded fleet: a pad lane got bandwidth or "
+                             "energy")
+    check(counts["sp1_lambda_sum"] == 3 * batched,
+          f"padded fleet: {counts['sp1_lambda_sum']} sp1_lambda_sum "
+          f"launches for {batched} batched BCD iterations (want 3 each)")
+    check(same_iters and prefix_rel <= PAD_PREFIX_TOL,
+          f"padded fleet: float64 prefix vs unpadded solve rel diff "
+          f"{prefix_rel:.3g} (limit {PAD_PREFIX_TOL:g}), same iterations "
+          f"{same_iters}")
+    return run
+
+
+def phase_rounds_fleet(torch):
+    """The main path's fleet through `solve(Problem(rounds=...))`: every
+    round's allocation feasible (read off each round's BCD solve), the
+    ledger finite, staleness codes in -1..K, arrived fractions in [0, 1],
+    3 SP1 launches per batched BCD iteration of every round."""
+    from repro_torch import Problem, RoundsConfig, Weights
+    from repro_torch.core.types import Allocation
+    from repro_torch.dynamics import engine
+
+    fleet = fleet_system(torch, torch.float32)
+    cfg = RoundsConfig(**ROUNDS)
+    problem = Problem(system=fleet, weights=Weights(*WEIGHTS), rounds=cfg,
+                      key=ROUNDS_SEED)
+    solves, starts = [], []
+    allocate = engine._allocate_impl
+
+    def spy(*args, **kw):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        out = allocate(*args, **kw)
+        torch.cuda.synchronize()
+        solves.append((time.perf_counter() - starts[-1], out[:4]))
+        return out
+
+    engine._allocate_impl = spy
+    try:
+        res, counts, reads, wall = counted_solve(torch, problem, None)
+        end = time.perf_counter()
+    finally:
+        engine._allocate_impl = allocate
+    round_s = [b - a for a, b in zip(starts, starts[1:] + [end])]
+    feas = [feasible_cells(torch, fleet, Allocation(*out))
+            for _, out in solves]
+    iters = res.col("bcd_iters")                         # (C, R)
+    batched = iters.amax(0).long().tolist()
+    codes = res.staleness
+    arrived = res.col("arrived_frac")
+    sp2 = res.col("sp2_evals").double().mean(0).tolist()
+    run = dict(C=FLEET_C, N=FLEET_N, dtype="float32", config=dict(ROUNDS),
+               wall_s=wall, round_s=round_s,
+               solve_s=[x[0] for x in solves], launches=counts,
+               host_reads=reads, batched_iters=batched,
+               mean_iters=iters.double().mean(0).tolist(),
+               mean_sp2_evals=sp2,
+               warm_rounds_fewer_sp2_evals=bool(max(sp2[1:]) < sp2[0]),
+               ledger_finite=bool(torch.isfinite(res.ledger).all()),
+               feasible_rounds=sum(all(f.values()) for f in feas),
+               staleness_codes=[int(codes.min()), int(codes.max())],
+               arrived_frac=[float(arrived.min()), float(arrived.max())],
+               n_late=float(res.col("n_late").sum()),
+               n_dropped=float(res.col("n_dropped").sum()),
+               mean_objective=res.col("objective").double().mean(0).tolist())
+    record("rounds_fleet", **run)
+    check(run["ledger_finite"], "rounds fleet: non-finite ledger")
+    check(run["feasible_rounds"] == cfg.rounds == len(solves),
+          f"rounds fleet: {run['feasible_rounds']} of {cfg.rounds} rounds "
+          f"feasible ({len(solves)} solves)")
+    check(-1 <= run["staleness_codes"][0]
+          and run["staleness_codes"][1] <= cfg.max_staleness,
+          f"rounds fleet: staleness codes {run['staleness_codes']}")
+    # under "stale" a round's arrivals are its on-time mass plus the late
+    # mass of up to K earlier rounds at decay^k, so the fraction may pass 1
+    # (as in repro); it stays under sum_{k <= K} decay^k
+    top = sum(cfg.staleness_decay ** k for k in range(cfg.max_staleness + 1))
+    check(0.0 <= run["arrived_frac"][0] and run["arrived_frac"][1] <= top,
+          f"rounds fleet: arrived fractions {run['arrived_frac']} outside "
+          f"[0, {top}]")
+    check(counts["sp1_lambda_sum"] == 3 * sum(batched),
+          f"rounds fleet: {counts['sp1_lambda_sum']} sp1_lambda_sum "
+          f"launches for {sum(batched)} batched BCD iterations over "
+          f"{cfg.rounds} rounds (want 3 each)")
+    return run
+
+
+def phase_grad(torch):
+    """`repro_torch.diff.solve_and_grad` on the main path's fleet: values
+    against `solve`'s, every gradient finite, the forward's SP1 launches;
+    then a padded pool of PAD_F64_CELLS cells, whose pad lanes' gradients
+    must be exactly 0."""
+    from repro_torch import Problem, SolverSpec, Weights, solve
+    from repro_torch.core.bcd import _LEDGER_COLS
+    from repro_torch.diff import METRICS, solve_and_grad
+
+    fleet = fleet_system(torch, torch.float32)
+    spec = SolverSpec(max_iters=FLEET_ITERS)
+    problem = Problem(system=fleet, weights=Weights(*WEIGHTS))
+    g, counts, reads, wall = counted(
+        torch, lambda: solve_and_grad(problem, spec, adjoint_iters=30))
+    res = solve(problem, spec)
+    last = res.history[torch.arange(FLEET_C, device=res.iters.device),
+                       res.iters.long() - 1]
+    value_rel = {}
+    for m in ("objective", "energy", "time"):
+        ref = last[:, _LEDGER_COLS.index(m)].double()
+        value_rel[m] = float(((g.value[m].double() - ref).abs()
+                              / ref.abs()).max())
+    finite = all(bool(torch.isfinite(v).all())
+                 for d in g.grads.values() for v in d.values())
+    batched = int(res.iters.max())
+
+    pool, _, _ = padded_pool(torch, torch.float32, PAD_F64_CELLS)
+    gp = solve_and_grad(Problem(system=pool, weights=Weights(*WEIGHTS)),
+                        spec, wrt=("gain", "cycles", "samples", "kappa"))
+    pad = ~pool.active
+    pad_zero = all(torch.equal(gp.grads[m][k][pad],
+                               torch.zeros_like(gp.grads[m][k][pad]))
+                   for m in METRICS for k in ("gain", "cycles", "samples"))
+    run = dict(C=FLEET_C, N=FLEET_N, dtype="float32", adjoint_iters=30,
+               wrt=list(g.wrt), wall_s=wall, launches=counts,
+               host_reads=reads, batched_iters=batched,
+               value_max_rel_diff=value_rel, value_tol=GRAD_VALUE_TOL,
+               grads_finite=finite,
+               grad_objective_weights_mean=g.grads["objective"]["weights"]
+               .double().mean(0).tolist(),
+               padded_cells=PAD_F64_CELLS, pad_lane_grads_zero=pad_zero)
+    record("grad", **run)
+    check(max(value_rel.values()) <= GRAD_VALUE_TOL,
+          f"grad: values differ from solve()'s by {value_rel}")
+    check(finite, "grad: a non-finite gradient")
+    check(pad_zero, "grad: a pad lane's gradient is not exactly 0")
+    check(counts["sp1_lambda_sum"] == 3 * batched,
+          f"grad: {counts['sp1_lambda_sum']} sp1_lambda_sum launches for "
+          f"{batched} batched BCD iterations of the forward solve")
+    return run
+
+
+def grad_rel(torch, a, b):
+    """The largest differences of two GradResults' values and of their
+    gradients, each relative to the array's largest entry: (values,
+    gradients)."""
+    def rel(x, y):
+        x, y = x.double().cpu(), y.double().cpu()
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-300))
+
+    return (max(rel(a.value[m], b.value[m]) for m in a.value),
+            max(rel(a.grads[m][k], b.grads[m][k])
+                for m in a.grads for k in a.grads[m]))
+
+
+def card_vs_cpu_dynamics(torch):
+    """Rounds and solve_and_grad on the card and on the CPU in float64."""
+    from repro_torch import (Problem, RoundsConfig, SolverSpec, Weights,
+                             make_system, solve)
+    from repro_torch.diff import implicit, solve_and_grad
+    from repro_torch.dynamics import ROUND_COLS, draws_from_generator
+
+    weights = Weights(*WEIGHTS)
+    four = fleet_system(torch, torch.float64, 4, CPU_N)
+    cfg = RoundsConfig(**CPU_ROUNDS)
+    draws = draws_from_generator(ROUNDS_SEED, 4, cfg.rounds, CPU_N, cfg,
+                                 device="cuda", dtype=torch.float64)
+    gpu = solve(Problem(system=four, weights=weights, rounds=cfg, key=draws))
+    cpu = solve(Problem(system=four.to("cpu"), weights=weights, rounds=cfg,
+                        key=draws.to("cpu")))
+    lg, lc = gpu.ledger.cpu(), cpu.ledger
+    ev = ROUND_COLS.index("sp2_evals")
+    cols = [i for i in range(len(ROUND_COLS)) if i != ev]
+    scale = lc[..., cols].abs().amax((0, 1)).clamp_min(1e-300)
+    ledger_rel = float(((lg[..., cols] - lc[..., cols]).abs()
+                        / scale).max())
+    ev_gap = float((lg[..., ev] - lc[..., ev]).abs().max())
+    iters = lc[..., ROUND_COLS.index("bcd_iters")]
+    same_iters = torch.equal(lg[..., ROUND_COLS.index("bcd_iters")], iters)
+    same_codes = torch.equal(gpu.staleness.cpu(), cpu.staleness)
+    record("card_vs_cpu", topology="rounds", C=4, N=CPU_N, dtype="float64",
+           config=CPU_ROUNDS, n_late=float(gpu.col("n_late").sum()),
+           ledger_max_rel_diff=ledger_rel,
+           sp2_evals_max_gap=ev_gap, same_bcd_iters=same_iters,
+           same_staleness=same_codes)
+    check(same_iters, "card vs CPU, rounds: BCD iteration counts differ")
+    check(same_codes, "card vs CPU, rounds: staleness codes differ")
+    check(ledger_rel <= 1e-8, f"card vs CPU, rounds: ledger rel diff "
+                              f"{ledger_rel:.3g} > 1e-8")
+    check(bool(((lg[..., ev] - lc[..., ev]).abs()
+                <= EV_SLACK_PER_ITER * iters).all()),
+          f"card vs CPU, rounds: sp2_evals differ by {ev_gap}")
+
+    spec = SolverSpec(max_iters=FLEET_ITERS)
+    gg = solve_and_grad(Problem(system=four, weights=weights), spec)
+    cpu4 = four.to("cpu")
+    gc = solve_and_grad(Problem(system=cpu4, weights=weights), spec)
+    ulp = solve_and_grad(Problem(system=cpu4.replace(
+        gain=cpu4.gain * (1 + torch.finfo(torch.float64).eps)),
+        weights=weights), spec)
+    val4, grad4 = grad_rel(torch, gg, gc)
+    spread4 = grad_rel(torch, ulp, gc)[1]
+    cell = make_system(PAPER_SEED, n_devices=PAPER_N, device="cuda",
+                       dtype=torch.float64)
+    dg = solve_and_grad(Problem(system=cell, weights=weights), SolverSpec(),
+                        adjoint_iters=0)
+    dense = implicit._dense_adjoint
+    conds = []
+
+    def spy(ctx, x, pull_x, v):
+        u = dense(ctx, x, pull_x, v)
+        n = 2 * x[0].shape[1]
+        conds.append(float(torch.linalg.cond(
+            torch.eye(n, dtype=x[0].dtype, device=x[0].device)
+            - ctx.jac.transpose(-1, -2)).max()))
+        return u
+
+    implicit._dense_adjoint = spy
+    try:
+        dc = solve_and_grad(Problem(system=cell.to("cpu"), weights=weights),
+                            SolverSpec(), adjoint_iters=0)
+    finally:
+        implicit._dense_adjoint = dense
+    val1, grad1 = grad_rel(torch, dg, dc)
+    record("card_vs_cpu", topology="grad", C=4, N=CPU_N, dtype="float64",
+           adjoint_iters=30, value_max_rel_diff=val4,
+           grad_max_rel_diff=grad4, cpu_ulp_spread=spread4,
+           grad_tol=GRAD_CPU_TOL)
+    record("card_vs_cpu", topology="grad_dense", N=PAPER_N, dtype="float64",
+           adjoint_iters=0, value_max_rel_diff=val1,
+           grad_max_rel_diff=grad1, cond_I_minus_JT=max(conds),
+           grad_tol=DENSE_CPU_TOL)
+    check(max(val4, val1) <= 1e-8,
+          f"card vs CPU, solve_and_grad: values differ by "
+          f"{max(val4, val1):.3g} > 1e-8")
+    check(grad4 <= GRAD_CPU_TOL,
+          f"card vs CPU, solve_and_grad on 4 cells: gradients differ by "
+          f"{grad4:.3g} > {GRAD_CPU_TOL:g} (the CPU's one-ulp spread "
+          f"{spread4:.3g})")
+    check(grad1 <= DENSE_CPU_TOL,
+          f"card vs CPU, dense adjoint on the paper cell: gradients differ "
+          f"by {grad1:.3g} > {DENSE_CPU_TOL:g}")
+
+
 def phase_card_vs_cpu(torch):
     """Four fleet cells and the paper cell in float64, solved on the card
     and on the CPU."""
@@ -866,6 +1304,7 @@ def phase_card_vs_cpu(torch):
     check(rel <= 1e-8, f"card vs CPU: objective rel diff {rel:.3g} > 1e-8")
     check(torch.equal(gpu.iters.cpu(), cpu.iters),
           "card vs CPU: BCD iteration counts differ")
+    card_vs_cpu_dynamics(torch)
 
 
 def phase_paper_paths(torch):
@@ -1304,10 +1743,13 @@ def trace(torch, label, problem, spec):
 
 
 def phase_profile(torch):
-    """The fleet solve, the deadline-fleet solve and one warm Theorem-2
-    call on the region, traced."""
-    from repro_torch import Problem, SolverSpec, Weights, solve
+    """The fleet solve, the deadline-fleet solve, the padded pool's solve,
+    one warm round of the rounds fleet (the round after a first, untraced
+    one, warm-started from its allocation), one `solve_and_grad` on the
+    fleet and one warm Theorem-2 call on the region, traced."""
+    from repro_torch import Problem, RoundsConfig, SolverSpec, Weights, solve
     from repro_torch.core.sp2 import solve_sp2_v2_thm2
+    from repro_torch.diff import solve_and_grad
 
     fleet = fleet_system(torch, torch.float32)
     spec = SolverSpec(max_iters=FLEET_ITERS)
@@ -1315,6 +1757,19 @@ def phase_profile(torch):
     trace(torch, "fleet", problem, spec)
     deadline, _ = deadline_problem(torch, fleet, solve(problem, spec))
     trace(torch, "deadline_fleet", deadline, spec)
+    pool, _, _ = padded_pool(torch, torch.float32)
+    trace(torch, "padded_fleet", Problem(system=pool,
+                                         weights=Weights(*WEIGHTS)), spec)
+    one_round = RoundsConfig(**dict(ROUNDS, rounds=1))
+    first = solve(Problem(system=fleet, weights=Weights(*WEIGHTS),
+                          rounds=one_round, key=ROUNDS_SEED))
+    trace(torch, "rounds_fleet_warm_round", Problem(
+        system=fleet, weights=Weights(*WEIGHTS), rounds=one_round,
+        key=ROUNDS_SEED + 1, init=first.allocation), None)
+    (_, counts, reads, _), rec = trace_call(torch, lambda: counted(
+        torch, lambda: solve_and_grad(problem, spec, adjoint_iters=30)))
+    record("profile", topology="grad", C=FLEET_C, N=FLEET_N, dtype="float32",
+           host_reads=reads, launches=counts, **rec)
 
     region = region_system(torch, torch.float32)
     rmin, nu, beta = thm2_instance(torch, region)
@@ -1659,7 +2114,11 @@ PORT_KERNEL_KEY = re.compile(
 def trace_call(torch, fn):
     """fn() under torch.profiler: its wall time, the card's busy time and
     idle share, the kernels that take the most time, and each of the
-    port's own kernels that ran. Returns (fn's result, record)."""
+    port's own kernels that ran. Returns (fn's result, record).
+
+    The device events are read off the profiler's raw kineto events:
+    building `key_averages()` costs ~60 us an event on the host, minutes
+    for the ~10^5-10^6 launches of a gradient or rounds run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1670,20 +2129,22 @@ def trace_call(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    gpu = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in gpu) / 1e3
-    top = sorted(gpu, key=lambda e: -e.self_device_time_total)[:8]
+    kernels = {}                          # name -> [calls, device ns]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0, 0])
+            k[0] += 1
+            k[1] += e.duration_ns()
+    busy_ms = sum(k[1] for k in kernels.values()) / 1e6
+    rows = [dict(name=name[:80], calls=k[0], device_ms=k[1] / 1e6)
+            for name, k in kernels.items()]
     return out, dict(
         traced_wall_s=wall, device_busy_ms=busy_ms,
         device_idle_share=(1.0 - busy_ms / (wall * 1e3)) if busy_ms else None,
-        kernel_launches=sum(e.count for e in gpu),
-        top_kernels=[dict(name=e.key[:80], calls=e.count,
-                          device_ms=e.self_device_time_total / 1e3)
-                     for e in top],
-        port_kernels=[dict(name=e.key[:80], calls=e.count,
-                           device_ms=e.self_device_time_total / 1e3)
-                      for e in gpu if PORT_KERNEL_KEY.search(e.key)])
+        kernel_launches=sum(k[0] for k in kernels.values()),
+        top_kernels=sorted(rows, key=lambda r: -r["device_ms"])[:8],
+        port_kernels=[r for name, r in zip(kernels, rows)
+                      if PORT_KERNEL_KEY.search(name)])
 
 
 def phase_lm_serve(torch):

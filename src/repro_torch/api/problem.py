@@ -7,8 +7,9 @@ objective weights and the optional extras; `solve` routes on its topology:
   * ``system.gain`` (C, N)         -> fleet (every cell in one batch)
   * ``deadline`` set               -> the deadline-constrained BCD, single
                                       cell or fleet
-  * ``mesh`` / ``rounds`` / ``assoc`` set
-                                   -> not ported yet (NotImplementedError)
+  * ``rounds`` set                 -> the round-dynamics engine, single
+                                      cell or fleet
+  * ``mesh`` / ``assoc`` set       -> not ported yet (NotImplementedError)
 
 Weights are data: `weights_leaf` lowers them to a (3,) / (C, 3) tensor,
 so every cell can weigh energy / latency / accuracy differently.
@@ -96,9 +97,14 @@ class Problem:
         (C, N) stack a (C,) per-cell array.
     bandwidth_frac : share of the budget the deadline variant's start
         splits equally (Fig. 9 starts from B/(2N), 0.5).
-    mesh, rounds, key, assoc : the topologies of `repro.api.Problem` that
-        a later slice ports; `solve` raises NotImplementedError when one is
-        set (`key` is read only by `rounds`).
+    rounds : a `dynamics.RoundsConfig`: solve runs R rounds of the
+        round-dynamics engine; the per-round solver options (bcd_iters,
+        bcd_tol, sp*_method) come from the config, not from `SolverSpec`.
+    key : the draws of a rounds problem (required with `rounds`): a
+        `dynamics.RoundDraws`, a `torch.Generator` on the system's device,
+        or an integer seed for one.
+    mesh, assoc : the topologies of `repro.api.Problem` that a later slice
+        ports; `solve` raises NotImplementedError when one is set.
     """
     system: SystemParams
     weights: WeightsLike

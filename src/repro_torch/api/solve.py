@@ -7,6 +7,8 @@ Port of `repro/api/solve.py` for these topologies:
     + deadline         -> deadline-constrained BCD (`BCDResult`; on a
                           (C, N) stack every cell at once, with a scalar or
                           a (C,) per-cell deadline -> `FleetResult`)
+    + rounds config    -> the round-dynamics engine (`RoundsResult`, one
+                          cell or every cell of a stack at once)
 
 Every engine of `SolverSpec` runs on each of them (SP1 "sweep"/"bisect",
 SP2 "direct"/"jong"). The solve runs on the device the system's tensors
@@ -25,12 +27,14 @@ from ..core.bcd import (_FIXED_COLS, _LEDGER_COLS, BCDResult, SolveCounters,
                         _init_carry_state, _materialize_history,
                         initial_allocation)
 from ..core.types import Allocation, SystemParams
+from ..dynamics.config import RoundsResult
+from ..dynamics.engine import (check_simulation_init, round_draws,
+                               rounds_result, run_engine)
 from .problem import Problem, weights_leaf
 from .spec import SolverSpec, warn_tol_floor
 
 # Problem fields of topologies not ported yet -> the ROADMAP item porting them
 _LATER = {
-    "rounds": "Queue 1 item 6 (round dynamics)",
     "mesh": "Queue 1 item 9 (the serving pipeline and its mesh)",
     "assoc": "Queue 1 item 10 (association)",
 }
@@ -50,7 +54,7 @@ def solve(problem: Problem, spec: Optional[SolverSpec] = None):
 
     Returns a `BCDResult` for a single cell and a `FleetResult` for a
     (C, N) stack, with the same fields, iteration counts, ledger columns
-    and counters as `repro.solve`.
+    and counters as `repro.solve`; a `RoundsResult` for a rounds problem.
     """
     spec = SolverSpec() if spec is None else spec
     for field, item in _LATER.items():
@@ -62,8 +66,10 @@ def solve(problem: Problem, spec: Optional[SolverSpec] = None):
         raise ValueError("solve: SolverSpec.lockstep requires Problem.mesh")
     cells = problem.cells   # also validates system.gain is 1-D or 2-D
     sysp, init = _apply_dtype(problem.system, problem.init, spec.dtype)
-    warn_tol_floor(spec.tol, sysp.dtype)
     acc = problem.acc if problem.acc is not None else default_accuracy()
+    if problem.rounds is not None:
+        return _solve_rounds(problem, spec, sysp, init, acc)
+    warn_tol_floor(spec.tol, sysp.dtype)
     alloc0 = init if init is not None else initial_allocation(
         sysp, bandwidth_frac=problem.bandwidth_frac
         if problem.deadline is not None else 1.0)
@@ -85,6 +91,39 @@ def solve(problem: Problem, spec: Optional[SolverSpec] = None):
     if cells is None:
         return _bcd_result(out, alloc0, spec, cols)
     return _fleet_result(out, spec.max_iters, cols)
+
+
+def _solve_rounds(problem: Problem, spec: SolverSpec, sysp: SystemParams,
+                  init: Optional[Allocation], acc) -> RoundsResult:
+    """R rounds of the round-dynamics engine on every cell at once; the
+    reference's rounds / deadline / key / SolverSpec errors."""
+    if problem.deadline is not None:
+        raise ValueError("solve: rounds and deadline are exclusive")
+    if problem.key is None:
+        raise ValueError(
+            "solve: a rounds problem needs problem.key (its draws, a "
+            "torch.Generator or a seed for the channel / participation "
+            "sampling)")
+    # the per-round solver options live on RoundsConfig; silently dropping
+    # a tuned spec would mislead, so only .dtype may differ from the
+    # defaults (.lockstep needs a mesh, which raises above)
+    if spec != SolverSpec(dtype=spec.dtype):
+        raise ValueError(
+            "solve: a rounds problem takes its BCD options "
+            "(bcd_iters/bcd_tol/sp*_method) from the RoundsConfig, not "
+            "from SolverSpec — configure problem.rounds instead (only "
+            "SolverSpec.dtype applies here)")
+    cfg = problem.rounds
+    check_simulation_init(cfg, init)
+    batch = sysp.batched()
+    alloc0 = init if init is not None else initial_allocation(sysp)
+    state0 = _init_carry_state(batch, alloc0)
+    cells = problem.cells
+    warr = weights_leaf(problem.weights, sysp.dtype, sysp.device,
+                        cells=1 if cells is None else cells)
+    out = run_engine(batch, warr, acc, round_draws(problem.key, batch, cfg),
+                     state0, cfg)
+    return rounds_result(out, single=cells is None)
 
 
 def _per_cell_T_round(problem: Problem, batch: SystemParams,

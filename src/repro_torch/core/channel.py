@@ -10,6 +10,11 @@ Draws come from an explicit `torch.Generator` on the CPU, in float64, and
 are then cast and moved: the same seed gives the same system on every
 device. They are not `jax.random`'s numbers; parity tests build their
 systems with `repro` and bring them over through `repro_torch.interop`.
+
+The round-to-round channel (`shadowing_to_gain`, `sample_gain`,
+`drift_shadowing`) takes its standard-normal draw `z` as a tensor, so a
+caller can feed it any draws: the reference's, through `interop`, or a
+`torch.Generator`'s, through `dynamics.draws_from_generator`.
 """
 from __future__ import annotations
 
@@ -25,10 +30,12 @@ Tensor = torch.Tensor
 GeneratorLike = Union[torch.Generator, int]
 
 
-def _generator(gen: GeneratorLike) -> torch.Generator:
+def _generator(gen: GeneratorLike, device=None) -> torch.Generator:
+    """`gen` itself, or a generator on `device` (the CPU by default)
+    seeded with the integer `gen`."""
     if isinstance(gen, torch.Generator):
         return gen
-    return torch.Generator().manual_seed(int(gen))
+    return torch.Generator(device=device).manual_seed(int(gen))
 
 
 def device_positions(gen: torch.Generator, n: int, area_m: float) -> Tensor:
@@ -45,6 +52,34 @@ def pathloss_db(distance_m: Tensor) -> Tensor:
 def shadowing_sigma(shadowing_db: float) -> float:
     """Natural-log sigma of the lognormal shadow fading (sigma_dB -> ln)."""
     return shadowing_db * math.log(10.0) / 10.0
+
+
+def shadowing_to_gain(expected: Tensor, x: Tensor,
+                      shadowing_db: float) -> Tensor:
+    """Map a standard-normal shadowing state x to a gain realization.
+
+    `expected` already folds in the lognormal mean E[10^(X/10)] (see
+    `expected_gain`), so it is divided back out before the realization is
+    applied: E_x[shadowing_to_gain(expected, x, db)] == expected."""
+    sigma = torch.as_tensor(shadowing_sigma(shadowing_db), dtype=x.dtype,
+                            device=x.device)
+    shadow_mean = torch.exp(sigma * sigma / 2.0)
+    return expected / shadow_mean * torch.exp(sigma * x)
+
+
+def sample_gain(expected: Tensor, z: Tensor, shadowing_db: float) -> Tensor:
+    """One iid realization g_{n,r} of the channel for a global round, from
+    the standard-normal draw z (shaped like `expected`)."""
+    return shadowing_to_gain(expected, z, shadowing_db)
+
+
+def drift_shadowing(x: Tensor, z: Tensor, rho: float) -> Tensor:
+    """One AR(1) Gauss-Markov step of the standard-normal shadowing state:
+    x' = rho x + sqrt(1 - rho^2) z, z ~ N(0, 1) (round-to-round correlated
+    fading). The stationary law stays N(0, 1), so `shadowing_to_gain`
+    keeps E[gain] == expected at every round."""
+    rho = torch.as_tensor(rho, dtype=x.dtype, device=x.device)
+    return rho * x + torch.sqrt(torch.clamp_min(1.0 - rho * rho, 0.0)) * z
 
 
 def expected_gain(gen: torch.Generator, n: int, area_m: float,

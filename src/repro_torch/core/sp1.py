@@ -61,12 +61,33 @@ def _coeffs(sys: SystemParams, w: Weights):
     return alpha, q
 
 
-def _f_of_lambda(sys: SystemParams, w: Weights, lam: Tensor) -> Tensor:
-    # dtype-aware guard: w1 == 0 (pure latency weighting) would make this
+def _f_denom(sys: SystemParams, w: Weights, dtype: torch.dtype) -> Tensor:
+    # dtype-aware guard: w1 == 0 (pure latency weighting) would make
     # cbrt(0/0) = NaN at lam = 0
-    tiny = torch.finfo(lam.dtype).tiny
-    f_unc = _cbrt(lam / torch.clamp_min(
-        2.0 * w.w1 * sys.global_rounds * sys.kappa, tiny))
+    return torch.clamp_min(2.0 * w.w1 * sys.global_rounds * sys.kappa,
+                           torch.finfo(dtype).tiny)
+
+
+def _f_of_lambda(sys: SystemParams, w: Weights, lam: Tensor,
+                 denom: Tensor | None = None) -> Tensor:
+    """f*(lambda) = cbrt(lambda / (2 w1 Rg kappa)) clipped to the box;
+    `denom` is `_f_denom`'s value where the caller has formed it."""
+    if denom is None:
+        denom = _f_denom(sys, w, lam.dtype)
+    f_unc = _cbrt(lam / denom)
+    return torch.minimum(torch.maximum(f_unc, sys.f_min), sys.f_max)
+
+
+def _f_of_lambda_diff(sys: SystemParams, w: Weights, lam: Tensor) -> Tensor:
+    """Value-identical (to an ulp) to `_f_of_lambda`, gradient-safe.
+
+    The fused form cbrt(lam / denom) backpropagates -lam / denom^2, and
+    denom = 2 w1 Rg kappa ~ 1e-27 underflows float32 when squared: every
+    kappa / w1 gradient would become inf. The split cube root keeps the
+    backward pass on the cube-root scale (denom^(4/3) ~ 1e-36, which float32
+    holds), so the gradient path (`sp1_stationarity`, `repro_torch.diff`)
+    uses this form."""
+    f_unc = _cbrt(lam) / _cbrt(_f_denom(sys, w, lam.dtype))
     return torch.minimum(torch.maximum(f_unc, sys.f_min), sys.f_max)
 
 
@@ -77,6 +98,12 @@ def _s_of_lambda(sys: SystemParams, w: Weights, acc: AccuracyModel,
     alpha, q = _coeffs(sys, w)
     f = _f_of_lambda(sys, w, lam)
     psi = 2.0 * alpha * (f * f) + 2.0 * lam * q / torch.clamp_min(f, 1e-9)
+    return _s_of_psi(sys, w, acc, psi)
+
+
+def _s_of_psi(sys: SystemParams, w: Weights, acc: AccuracyModel,
+              psi: Tensor) -> Tensor:
+    """The root s of s psi = rho A'(s) on [s_lo, s_hi]."""
     if isinstance(acc, LinearAccuracy):
         s_unc = w.rho * acc.slope / torch.clamp_min(
             psi, torch.finfo(psi.dtype).tiny)
@@ -97,12 +124,105 @@ def _s_of_lambda(sys: SystemParams, w: Weights, acc: AccuracyModel,
     return torch.where(h(hi0) <= 0, sys.s_hi, s)
 
 
+def _makespan_fn(sys: SystemParams, w: Weights, acc: AccuracyModel,
+                 tt: Tensor):
+    """lam -> the per-device makespan q s*(lam)^2 / f*(lam) + tt, with the
+    coefficients that do not depend on lam formed once (the same
+    operations on the same operands as forming them per call)."""
+    alpha, q = _coeffs(sys, w)
+    denom = _f_denom(sys, w, tt.dtype)
+
+    def makespan(lam: Tensor) -> Tensor:
+        f = _f_of_lambda(sys, w, lam, denom)
+        fs = torch.clamp_min(f, 1e-9)
+        s = _s_of_psi(sys, w, acc, 2.0 * alpha * (f * f) + 2.0 * lam * q / fs)
+        return q * (s * s) / fs + tt
+
+    return makespan
+
+
 def _makespan_of_lambda(sys: SystemParams, w: Weights, acc: AccuracyModel,
                         lam: Tensor, tt: Tensor) -> Tensor:
+    return _makespan_fn(sys, w, acc, tt)(lam)
+
+
+def _s_of_lambda_diff(sys: SystemParams, w: Weights, acc: AccuracyModel,
+                      lam: Tensor, f: Tensor | None = None) -> Tensor:
+    """Differentiable s*(lambda).
+
+    For LinearAccuracy the closed form of `_s_of_lambda` is smooth and is
+    returned as it is (psi floored at sqrt(tiny), not tiny: the division's
+    backward squares the denominator, and tiny^2 underflows to 0, so a
+    zero-coefficient padded lane with psi = 0 would give 0 * inf = NaN
+    through the clip). For other models the fixed-step bisection has zero
+    derivative, so the root is one Newton correction of the detached
+    bisection result: equal in value to solver precision, with the exact
+    implicit-function derivative. Lanes at the [s_lo, s_hi] box keep the
+    bound.
+
+    `f` optionally supplies a precomputed (lane-guarded) CPU frequency, for
+    callers that must keep `_f_of_lambda`'s cube root away from lam = 0
+    (infinite derivative); see `sp1_stationarity`."""
+    alpha, q = _coeffs(sys, w)
+    if f is None:
+        f = _f_of_lambda_diff(sys, w, lam)
+    psi = 2.0 * alpha * (f * f) + 2.0 * lam * q / torch.clamp_min(f, 1e-9)
+    if isinstance(acc, LinearAccuracy):
+        s_unc = w.rho * acc.slope / torch.clamp_min(
+            psi, math.sqrt(torch.finfo(psi.dtype).tiny))
+        return torch.clamp(s_unc, sys.s_lo, sys.s_hi)
+    with torch.no_grad():
+        s0 = _s_of_lambda(sys, w, acc, lam)
+    h = s0 * psi - w.rho * acc.deriv(s0)          # traced residual at s0
+    # h'(s) = psi - rho A''(s) > 0 (A concave), psi and A'' detached; A''
+    # lane by lane from a backward pass of acc.deriv (it is elementwise)
+    with torch.enable_grad():
+        sr = s0.detach().requires_grad_()
+        d2A, = torch.autograd.grad(acc.deriv(sr).sum(), sr, allow_unused=True)
+    d2A = torch.zeros_like(s0) if d2A is None else d2A
+    hp = torch.clamp_min(psi.detach() - w.rho * d2A,
+                         torch.finfo(s0.dtype).tiny)
+    eps = 1e-9
+    interior = (s0 > sys.s_lo * (1.0 + eps)) & (s0 < sys.s_hi * (1.0 - eps))
+    return torch.where(interior, s0 - h / hp, s0)
+
+
+def sp1_stationarity(sys: SystemParams, w: Weights, acc: AccuracyModel,
+                     lam: Tensor, T: Tensor, tt: Tensor,
+                     mask: Tensor | None = None):
+    """SP1 KKT residuals at a candidate dual point (lam, T).
+
+    Returns (r_n, r_sum): r_n = M_n(lam_n) - T (per-device makespan
+    equalization, meaningful where lam_n > 0), (C, N), and
+    r_sum = sum_n lam_n - w2 Rg (the dual budget, eq. (18)), (C, 1). Both
+    are differentiable in (lam, T, tt), the SystemParams leaves and the
+    weights; the resolution inside M_n goes through `_s_of_lambda_diff`.
+    `repro_torch.diff.implicit` corrects its detached bisection solve with
+    one arrowhead Newton step on exactly these residuals.
+
+    `mask` (optional, per device) restricts the system to the SP1 active
+    set: lanes outside it (lam_n = 0 fast lanes and padded lanes) hold
+    f = f_min with zero one-sided derivative, carry r_n = 0, and drop out of
+    the dual budget sum. It is required whenever any lam_n = 0: the cube
+    root has an infinite derivative at 0, and even a zero gradient times
+    that is NaN."""
     _, q = _coeffs(sys, w)
-    f = _f_of_lambda(sys, w, lam)
-    s = _s_of_lambda(sys, w, acc, lam)
-    return q * (s * s) / torch.clamp_min(f, 1e-9) + tt
+    zero = torch.zeros((), dtype=lam.dtype, device=lam.device)
+    if mask is None:
+        f = _f_of_lambda_diff(sys, w, lam)
+        s = _s_of_lambda_diff(sys, w, acc, lam, f=f)
+        r_n = q * (s * s) / torch.clamp_min(f, 1e-9) + tt - T
+        r_sum = lam.sum(-1, keepdim=True) - w.w2 * sys.global_rounds
+        return r_n, r_sum
+    lam_s = torch.where(mask, lam, torch.ones_like(lam))
+    f = _f_of_lambda_diff(sys, w, lam_s)
+    f = torch.where(mask, f, sys.f_min.to(f.dtype))
+    s = _s_of_lambda_diff(sys, w, acc, lam_s, f=f)
+    r_n = torch.where(mask, q * (s * s) / torch.clamp_min(f, 1e-9) + tt - T,
+                      zero)
+    r_sum = torch.where(mask, lam, zero).sum(-1, keepdim=True) \
+        - w.w2 * sys.global_rounds
+    return r_n, r_sum
 
 
 def _lambda_of_T(sys: SystemParams, w: Weights, acc: AccuracyModel,
@@ -112,12 +232,13 @@ def _lambda_of_T(sys: SystemParams, w: Weights, acc: AccuracyModel,
     shape = torch.broadcast_shapes(T.shape, tt.shape)
     lo = torch.zeros(shape, dtype=tt.dtype, device=tt.device)
     hi = torch.broadcast_to(lam_hi, shape)
+    makespan = _makespan_fn(sys, w, acc, tt)
     for _ in range(_INNER_ITERS):
         mid = 0.5 * (lo + hi)
-        too_slow = _makespan_of_lambda(sys, w, acc, mid, tt) > T
+        too_slow = makespan(mid) > T
         lo, hi = torch.where(too_slow, mid, lo), torch.where(too_slow, hi, mid)
     lam = 0.5 * (lo + hi)
-    fast = _makespan_of_lambda(sys, w, acc, torch.zeros_like(lam), tt) <= T
+    fast = makespan(torch.zeros_like(lam)) <= T
     return torch.where(fast, 0.0, lam)
 
 

@@ -169,6 +169,16 @@ def _denergy2_dB2(sys: SystemParams, rmin: Tensor, B: Tensor) -> Tensor:
     return torch.where(on_rate, d2_rate, d2_clip)
 
 
+def sp2_stationarity(sys: SystemParams, rmin: Tensor, B: Tensor,
+                     mu: Tensor) -> Tensor:
+    """Per-lane KKT stationarity residual of the direct SP2 waterfilling:
+    psi_n = dE_n/dB(B_n) + mu (zero on interior lanes at the optimum;
+    positive where a lane is pinned at its rate floor b_min).
+    `repro_torch.diff.implicit` linearizes it (with the curvature
+    `_denergy2_dB2`) to differentiate through the SP2 solve."""
+    return _denergy_dB(sys, _clamp_rmin(sys, rmin), B) + mu
+
+
 def _budget_box(sys: SystemParams, rmin: Tensor) -> Tuple[Tensor, Tensor]:
     """Per-device bandwidth box [b_lo, b_hi] of the budget search, (C, N):
     the rate floors b_min (scaled to fit 0.999 of the budget when they alone

@@ -1,10 +1,13 @@
-"""Bring `repro`'s systems, allocations and model parameters over to the port.
+"""Bring `repro`'s systems, allocations, random draws and model parameters
+over to the port.
 
 The caller hands over numpy arrays (`np.asarray` of each `repro` leaf, done
 on the `repro` side); this module imports nothing of `repro`. A stacked
 `repro` system has (C,) per-cell scalars, which become (C, 1) here; a
 model's parameters, stacked over layer periods there, are unstacked into
-one module per period.
+one module per period. The round engine and the mobility traces take their
+draws as inputs, so a caller can feed them the reference's `jax.random`
+draws (`round_draws_from_numpy`, `mobility_draws_from_numpy`).
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import torch
 from .configs.base import ModelConfig
 from .core.types import (ALLOC_FIELDS, SYS_ARRAYS, SYS_SCALARS, Allocation,
                          SystemParams, resolve_device)
+from .dynamics.engine import RoundDraws
+from .dynamics.mobility import MobilityDraws
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -52,6 +57,31 @@ def allocation_from_numpy(leaves: Mapping[str, np.ndarray], device=None,
     return Allocation(**{k: None if leaves.get(k) is None
                          else _tensor(leaves[k], dtype, dev)
                          for k in ALLOC_FIELDS})
+
+
+def round_draws_from_numpy(shadow0: np.ndarray, z: np.ndarray,
+                           drop: np.ndarray, device=None,
+                           dtype: Optional[torch.dtype] = None) -> RoundDraws:
+    """A `RoundDraws` from numpy arrays: shadow0 (C, N) or (N,), z (C, R, N)
+    or (R, N), drop of z's shape (bool). `dtype` None keeps z's float
+    type."""
+    dev = resolve_device(device)
+    return RoundDraws(shadow0=_tensor(shadow0, dtype, dev),
+                      z=_tensor(z, dtype, dev),
+                      drop=torch.as_tensor(np.array(drop, dtype=bool)).to(dev))
+
+
+def mobility_draws_from_numpy(leaves: Mapping[str, np.ndarray], device=None,
+                              dtype: Optional[torch.dtype] = None
+                              ) -> MobilityDraws:
+    """A `MobilityDraws` from a dict of numpy arrays keyed by its field
+    names (pos0, v0, step_xy, and optionally wp0, step_v, shadow0,
+    shadow_z)."""
+    dev = resolve_device(device)
+    return MobilityDraws(**{k: None if leaves.get(k) is None
+                            else _tensor(leaves[k], dtype, dev)
+                            for k in ("pos0", "v0", "step_xy", "wp0",
+                                      "step_v", "shadow0", "shadow_z")})
 
 
 def _leaf(tree: Mapping, path: Sequence[str]) -> np.ndarray:

@@ -186,6 +186,52 @@ def test_sp1_lambda_sum_w1_zero_is_finite(cuda, dtype, n, points):
     assert_sp1_matches_plain(out, plain, xs[3], n)
 
 
+def zero_tail(q, tt, tails):
+    """q and tt with the last tails[c] lanes of cell c zeroed (padded
+    devices: no data, no transmission), and one all-zero cell appended."""
+    q, tt = q.clone(), tt.clone()
+    n = q.shape[1]
+    for c, t in enumerate(tails):
+        q[c, n - t:] = 0.0
+        tt[c, n - t:] = 0.0
+    zero = torch.zeros_like(q[:1])
+    return torch.cat([q, zero]), torch.cat([tt, zero])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 33, 257, 2048])
+def test_sp1_lambda_sum_zero_data_lanes_add_zero(cuda, dtype, n):
+    """Padded devices sit inside N with q = 0 and tt = 0 (region.batch).
+    Each such lane's term is exactly 0 at every finite deadline: a cell's
+    sums equal, bit for bit, the kernel's sums over the cell's non-zero
+    prefix alone, an all-zero cell sums to 0.0 exactly, and the plain
+    version agrees (its zero lanes are exactly 0 too)."""
+    T, q, tt, consts = sweep_inputs(cuda, dtype, n, cells=3, points=16)
+    tails = [1, n // 2, n - 1]
+    qz, ttz = zero_tail(q, tt, tails)
+    Tz = torch.cat([T, T[:1]]).contiguous()
+    cz = torch.cat([consts, consts[:1]]).contiguous()
+    out = sp1_sweep.sp1_lambda_sum(Tz, qz, ttz, cz)
+    plain = sp1_sweep.sp1_lambda_sum_ref(Tz, qz, ttz, cz)
+    k = [cz[:, i, None, None] for i in range(7)]
+    lam = sp1_sweep.lambda_of_T_linear(Tz[:, :, None], qz[:, None, :],
+                                       ttz[:, None, :], *k)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out[3], torch.zeros_like(out[3]))
+    assert torch.equal(plain[3], torch.zeros_like(plain[3]))
+    for c, t in enumerate(tails):
+        assert torch.equal(lam[c, :, n - t:], torch.zeros_like(
+            lam[c, :, n - t:]))
+        keep = n - t
+        alone = sp1_sweep.sp1_lambda_sum(
+            T[c:c + 1].contiguous(), q[c:c + 1, :keep].contiguous(),
+            tt[c:c + 1, :keep].contiguous(), consts[c:c + 1].contiguous())
+        assert torch.equal(out[c:c + 1], alone), c
+    assert_sp1_matches_plain(out, plain, cz, n)
+
+
 @pytest.mark.cuda
 def test_sp1_lambda_sum_counts_one_launch_per_call(cuda):
     xs = sweep_inputs(cuda, torch.float32, 300)

@@ -22,7 +22,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.baselines, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, repro_torch.configs, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
-            "repro_torch.launch.steps; "
+            "repro_torch.launch.steps, repro_torch.diff, "
+            "repro_torch.dynamics, repro_torch.region; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton')); print(bad); "
             "sys.exit(bool(bad))")
@@ -50,6 +51,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         interop.allocation_from_numpy(
             {k: np.ones(8) for k in ("bandwidth", "power", "freq",
                                      "resolution")})
+    from repro_torch.dynamics import (RoundsConfig, draws_from_generator,
+                                      mobility_draws, simulate_mobility)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        draws_from_generator(0, 1, 2, 8, RoundsConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_mobility(0, n_devices=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mobility_draws(0, 8, 1, rt.MobilityConfig())
     assert rt.make_system(0, n_devices=8, device="cpu").device.type == "cpu"
     s = interop.system_from_numpy(leaves(), (160.0, 640.0), device="cpu")
     assert s.device.type == "cpu" and s.p_max.shape == ()

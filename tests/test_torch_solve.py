@@ -170,8 +170,10 @@ def test_keep_history_false_keeps_the_objective(paper_cell):
     assert lean.history == [] and lean.objective == full.objective
 
 
+# rounds alone is ported; rounds over a mesh still waits for the mesh
 @pytest.mark.parametrize("extra", [
-    dict(rounds=object()), dict(mesh=object()), dict(assoc=object())])
+    dict(rounds=rt.RoundsConfig(rounds=1), key=0, mesh=object()),
+    dict(mesh=object()), dict(assoc=object())])
 def test_unported_topologies_raise(paper_cell, extra):
     _, st = paper_cell
     problem = rt.Problem(system=st, weights=rt.Weights(0.5, 0.5, 1.0),
