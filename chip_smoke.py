@@ -48,6 +48,21 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          steps) on the same fleet: values against `solve`'s, every
          gradient finite, and on a 4-cell padded pool every pad lane's
          gradient exactly 0;
+       - the region serving stack (`repro_torch.region`), float32,
+         SolverSpec(max_iters=8, tol=1e-4): (a) examples/region_serve.py's
+         256-request Poisson trace over 48 cells of 9-500 devices at 32
+         cells a batch through `RegionPipeline` (<= 4 batch shapes, the
+         metric plane's counts, the default SLOs' verdicts, a /metrics
+         scrape on 127.0.0.1); (b) the padded pool's 64 cells as cold
+         requests (recorded: plan / dispatch / materialize / solve spans,
+         one request point each), a warm wave with 1% drift (fewer BCD
+         iterations), the cold wave at depth 1 (bit-identical), one batch
+         solved directly on its plan (bit-identical); `Problem.mesh` over
+         `region_mesh()` on the C=64 x N=2048 fleet, shard-local and
+         lockstep, bit-identical to the fleet solve; (c) `replay_mobility`
+         of a 4-step random-waypoint trace of 16,384 devices over 16
+         cells; every response finite and feasible, 3 sp1_lambda_sum
+         launches per batched BCD iteration of every batch;
        - LM serving through `repro_torch.launch.serve.main` for
          internlm2-20b (dense GQA) and rwkv6-1.6b (RWKV6) at full width and
          depth, and jamba-1.5-large-398b (hybrid Mamba + MoE) at full width
@@ -69,8 +84,11 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      per-cell deadlines; and the reduced LMs in float32 (prefill and four
      decode steps): internlm2-20b, rwkv6-1.6b, jamba-1.5-large-398b and
      mixtral-8x7b; and in float64 the rounds engine on 4 cells x 64
-     devices from one set of draws, and solve_and_grad on those 4 cells
-     (Neumann) and on the paper cell (the dense adjoint);
+     devices from one set of draws (locating the SP2 search with the
+     largest eval gap and replaying it on the CPU with the card's inputs
+     and with the card's exp / log1p), solve_and_grad on those 4 cells
+     (Neumann) and on the paper cell (the dense adjoint), and the region
+     serving trace (a) cut to 12 cells and 24 requests;
   5. times the warm fleet and deadline-fleet solves (median of 3) and each
      kernel per launch, by CUDA events over back-to-back wrapper calls
      (`ms`, the host included) and by torch.profiler's device time of its
@@ -82,8 +100,10 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      waterfill_gprime with the Halley steps its early exit takes on the
      region (a plain replay of the exit rule);
   6. traces one fleet solve, one deadline-fleet solve, one warm
-     Theorem-2 call on the region and one LM prefill and decode step per
-     configuration with torch.profiler: the card's
+     Theorem-2 call on the region, one served batch of the region serving
+     stack (its `solve` span's range holds all its sp1_lambda_sum kernels)
+     and one LM prefill and decode step per configuration with
+     torch.profiler: the card's
      busy time and idle share, the kernels that take the most time, and
      the port's own kernels.
 
@@ -154,8 +174,39 @@ GRAD_VALUE_TOL = 1e-4
 # LU's rounding: cuSOLVER's and LAPACK's differ. Values are held to 1e-8.
 GRAD_CPU_TOL, DENSE_CPU_TOL = 1e-5, 1e-3
 # the SP2 dual search's eval count rides data-dependent exits (ROADMAP
-# Queue 3): per BCD iteration, card vs CPU
+# Queue 3): per BCD iteration, card vs CPU. The card's exp and log1p differ
+# from the CPU's in the last bit on a share of inputs (`card_vs_cpu`'s
+# sp2_gap record replays the SP2 search that carries the largest gap on
+# the CPU with the card's exp), and at a rate floor the last bit picks a
+# branch of the dual search, which moves its exit by a few evaluations.
 EV_SLACK_PER_ITER = 8
+# The region serving stack (`repro_torch.region`), float32, served with
+# examples/region_serve.py's tolerance. Trace (a) is that example's: 48
+# cells with pools drawn from SERVE_POOLS, per-cell weights, 256 requests
+# in Poisson ticks of SERVE_RATE distinct cells, 1% gain drift per
+# re-request, buckets from 64. Cut: 32 cells a batch (the example's 8)
+# under the default close-on-full policy, drained at the end, where the
+# example flushes every tick — a batch costs ~1-2 s on the card whatever
+# its width (launches and host reads, PERF.md section 5), and a flush per
+# tick would solve ~110 batches of ~2 cells. The trace is replayed as fast
+# as the pipeline takes it (no pacing). Card vs CPU runs its first
+# SERVE_CPU_CELLS cells and SERVE_CPU_REQUESTS requests (the example's
+# smoke size) in float64.
+SERVE_CELLS, SERVE_REQUESTS, SERVE_RATE = 48, 256, 8.0
+SERVE_DRIFT, SERVE_SEED = 0.01, 7
+SERVE_POOLS = (9, 14, 23, 40, 65, 90, 150, 260, 410, 500)
+SERVE_CPB, SERVE_MIN_BUCKET, SERVE_DEPTH = 32, 64, 2
+SERVE_SPEC = dict(max_iters=8, tol=1e-4)
+SERVE_CPU_CELLS, SERVE_CPU_REQUESTS = 12, 24
+# Trace (c): replay_mobility of a random-waypoint trace (walking MAR users,
+# MobilityConfig's defaults: 1 s steps, 0.5-2 m/s, 8 dB shadowing drifting
+# at 0.9 a step) of MOB_DEVICES devices over MOB_CELLS cells of bs_grid
+# (~1024 a cell), all cells of a bucket in one batch, buckets from 1024 so
+# the menu is 1024 / 2048. At this size every cell hands some device over
+# every step, so replay_mobility purges every cell and each re-request is
+# cold.
+MOB_CFG = dict(model="rwp", steps=4)
+MOB_SEED, MOB_CELLS, MOB_DEVICES, MOB_MIN_BUCKET = 9, 16, 16384, 1024
 # Algorithm 1 runs ~100k small launches per SP2_v2 solve; the paper cell's
 # "jong" comparison is cut to 3 BCD x 5 Algorithm-1 iterations (the
 # reference's defaults are 20 x 30) to stay inside the run's time limit.
@@ -357,12 +408,16 @@ def main():
                      ("rounds_fleet", phase_rounds_fleet),
                      ("grad", phase_grad)):
         sp1_paths[name] = phase(name, fn)["launches"]["sp1_lambda_sum"]
-    kernels[0]["launches"] = sum(sp1_paths.values())
-    kernels[0]["launches_by_path"] = sp1_paths
     phase("card_vs_cpu", phase_card_vs_cpu)
     phase("paper_paths", phase_paper_paths)
     phase("lm_card_vs_cpu", phase_lm_card_vs_cpu)
     phase("kernel_times", phase_times, kernels)
+    # after kernel_times: run before it, the serving traces' millions of
+    # small launches left the mamba timing's profile with no launch caught
+    sp1_paths["region_serve"] = phase(
+        "region_serve", phase_region_serve)["launches"]["sp1_lambda_sum"]
+    kernels[0]["launches"] = sum(sp1_paths.values())
+    kernels[0]["launches_by_path"] = sp1_paths
     phase("profile", phase_profile)
     record("phase_seconds", total=sum(seconds.values()), **seconds)
 
@@ -952,19 +1007,28 @@ def phase_deadline_fleet(torch):
     return run
 
 
-def padded_pool(torch, dtype, n_cells=None):
-    """The padded pool's first `n_cells` (default all FLEET_C) cells
-    (PAD_SEED; see the constants), each padded to bucket_size(N_c),
-    stacked. Returns (pool, the unpadded cells, their sizes)."""
-    from repro_torch import bucket_size, make_system, pad_system, \
-        stack_systems
+def pool_cells(torch, dtype, n_cells=None, device="cuda"):
+    """The padded pool's first `n_cells` (default all FLEET_C) cells,
+    unpadded, on `device` (PAD_SEED; see the constants), and their
+    sizes."""
+    from repro_torch import make_system
 
     sizes = torch.randint(PAD_N_LO, FLEET_N + 1, (FLEET_C,),
                           generator=torch.Generator().manual_seed(PAD_SEED))
     sizes = sizes.tolist()[:FLEET_C if n_cells is None else n_cells]
     gen = torch.Generator().manual_seed(PAD_SEED)
-    cells = [make_system(gen, n, device="cuda", dtype=dtype,
+    cells = [make_system(gen, n, device=device, dtype=dtype,
                          bandwidth_total=20e6 * n / 50) for n in sizes]
+    return cells, sizes
+
+
+def padded_pool(torch, dtype, n_cells=None):
+    """The padded pool's first `n_cells` (default all FLEET_C) cells
+    (PAD_SEED; see the constants), each padded to bucket_size(N_c),
+    stacked. Returns (pool, the unpadded cells, their sizes)."""
+    from repro_torch import bucket_size, pad_system, stack_systems
+
+    cells, sizes = pool_cells(torch, dtype, n_cells)
     check(all(bucket_size(n) == FLEET_N for n in sizes),
           "padded pool: a cell's bucket is not FLEET_N")
     pool = stack_systems([pad_system(c, bucket_size(n))
@@ -1165,6 +1229,439 @@ def phase_grad(torch):
     return run
 
 
+def serve_trace(torch, n_cells, n_requests, dtype):
+    """Trace (a), examples/region_serve.py's: `n_cells` cells with pools
+    drawn from SERVE_POOLS and per-cell weights (numpy seed SERVE_SEED),
+    systems from seed SERVE_SEED * 1000 + cell, built on the host; Poisson
+    ticks of SERVE_RATE distinct cells, each request's gains drifted by
+    SERVE_DRIFT since that cell's last request; `n_requests` in all.
+    Returns the ticks, each a list of AllocationRequests."""
+    import numpy as np
+
+    from repro_torch import AllocationRequest, Weights, make_system
+
+    rng = np.random.default_rng(SERVE_SEED)
+    pools = rng.choice(SERVE_POOLS, size=n_cells)
+    cells, weights = {}, {}
+    for cid in range(n_cells):
+        cells[cid] = make_system(SERVE_SEED * 1000 + cid, int(pools[cid]),
+                                 device="cpu", dtype=dtype)
+        w1 = float(rng.uniform(0.1, 0.9))
+        weights[cid] = Weights(w1, 1.0 - w1, float(rng.uniform(1.0, 30.0)))
+    ticks, sent = [], 0
+    while sent < n_requests:
+        k = min(int(rng.poisson(SERVE_RATE)), n_requests - sent, n_cells)
+        tick = []
+        for cid in rng.choice(n_cells, size=k, replace=False):
+            cid = int(cid)
+            sysc = cells[cid]
+            drift = np.abs(1.0 + SERVE_DRIFT * rng.standard_normal(sysc.n))
+            cells[cid] = sysc.replace(
+                gain=sysc.gain * torch.from_numpy(drift).to(dtype))
+            tick.append(AllocationRequest(cell_id=cid, sys=cells[cid],
+                                          w=weights[cid]))
+        ticks.append(tick)
+        sent += k
+    return ticks
+
+
+def serve(pipe, ticks):
+    """Replay `ticks` through a RegionPipeline as fast as it takes them:
+    submit a tick's requests and `poll()` (the admission policy closes
+    full batches); drain at the end. Returns (the futures in submission
+    order, the dispatched batches)."""
+    futs, batches = [], []
+    for tick in ticks:
+        futs += [pipe.submit(r) for r in tick]
+        batches += pipe.poll()
+    batches += pipe.pump(force=True)
+    pipe.drain()
+    return futs, batches
+
+
+def serve_pipeline(depth=None, device="cuda"):
+    """A RegionPipeline at SERVE_CPB cells a batch, buckets from
+    SERVE_MIN_BUCKET, SERVE_SPEC, depth SERVE_DEPTH unless given."""
+    from repro_torch import RegionPipeline, SolverSpec, Weights
+
+    return RegionPipeline(
+        Weights(*WEIGHTS), cells_per_batch=SERVE_CPB,
+        min_bucket=SERVE_MIN_BUCKET, spec=SolverSpec(**SERVE_SPEC),
+        max_in_flight=SERVE_DEPTH if depth is None else depth, device=device)
+
+
+def same_responses(torch, futs_a, futs_b):
+    """Two runs' responses are equal field for field, to the bit."""
+    def same(a, b):
+        return (a.cell_id, a.iters, a.warm, a.objective) \
+            == (b.cell_id, b.iters, b.warm, b.objective) and all(
+                torch.equal(getattr(a.allocation, k), getattr(b.allocation, k))
+                for k in ("bandwidth", "power", "freq", "resolution",
+                          "s_relaxed", "T"))
+
+    return len(futs_a) == len(futs_b) and all(
+        same(a.result(), b.result()) for a, b in zip(futs_a, futs_b))
+
+
+def served_record(torch, label, pipe, futs, batches, counts, reads, wall):
+    """The record of one served trace: throughput, latency (the metric
+    plane's histogram since the last registry reset), stage clocks,
+    batches and their shapes, warm starts, launches and host reads per
+    batch, and every response's feasibility (on its unpadded allocation,
+    against its own request)."""
+    from repro_torch import obs
+
+    resp = [f.result() for f in futs]
+    feas = [feasible_cells(torch, f.request.sys, r.allocation)
+            for f, r in zip(futs, resp)]
+    warm = [r.iters for r in resp if r.warm]
+    cold = [r.iters for r in resp if not r.warm]
+    lat = obs.histogram("region_request_latency_seconds")
+    clocks = {s: dict(total_s=pipe.clocks.total(s), n=pipe.clocks.count(s),
+                      **pipe.clocks.percentiles(s, (50.0, 99.0)))
+              for s in pipe.clocks.STAGES}
+    batched = [int(b.result.iters.max()) for b in batches]
+    rec = dict(
+        trace=label, requests=len(resp), wall_s=wall,
+        requests_per_s=len(resp) / wall,
+        latency_p50_s=lat.percentile(50.0), latency_p99_s=lat.percentile(99.0),
+        latency_count=lat.count, stage_clocks=clocks,
+        batches=len(batches), shapes=sorted(pipe.compiled_shapes),
+        batched_iters=batched, cache=dict(hits=pipe.cache.hits,
+                                          misses=pipe.cache.misses),
+        warm_solves=len(warm), cold_solves=len(cold),
+        mean_warm_iters=statistics.mean(warm) if warm else None,
+        mean_cold_iters=statistics.mean(cold) if cold else None,
+        warm_share_le3=(sum(i <= 3 for i in warm) / len(warm)) if warm
+        else None,
+        launches=counts, host_reads=reads,
+        sp1_launches_per_batch=counts["sp1_lambda_sum"] / len(batches),
+        host_reads_per_batch=reads / len(batches),
+        feasible=sum(all(f.values()) for f in feas),
+        finite=sum(math.isfinite(r.objective) for r in resp))
+    record("region_serve", **rec)
+    check(rec["feasible"] == rec["finite"] == len(resp),
+          f"region serve {label}: {len(resp) - rec['feasible']} infeasible "
+          f"and {len(resp) - rec['finite']} non-finite responses")
+    check(counts["sp1_lambda_sum"] == 3 * sum(batched),
+          f"region serve {label}: {counts['sp1_lambda_sum']} sp1_lambda_sum "
+          f"launches for {sum(batched)} batched BCD iterations over "
+          f"{len(batches)} batches (want 3 each)")
+    return rec
+
+
+def serve_trace_a(torch):
+    """Trace (a) on the card, with the metric plane's checks: every
+    response counted, the default SLOs' verdicts, a scrape that parses."""
+    import urllib.request
+
+    from repro_torch import obs
+
+    obs.REGISTRY.reset()
+    plane = obs.SloPlane(obs.default_slos())
+    plane.observe()
+    ticks = serve_trace(torch, SERVE_CELLS, SERVE_REQUESTS, torch.float32)
+    pipe = serve_pipeline()
+    (futs, batches), counts, reads, wall = counted(
+        torch, lambda: serve(pipe, ticks))
+    rec = served_record(torch, "a_region", pipe, futs, batches, counts,
+                        reads, wall)
+    check(len(futs) == SERVE_REQUESTS,
+          f"region serve (a): {len(futs)} responses for {SERVE_REQUESTS}")
+    check(len(rec["shapes"]) <= 4,
+          f"region serve (a): {len(rec['shapes'])} batch shapes (max 4)")
+    served = obs.counter("region_solve_cells").value
+    verdicts = plane.check()
+    with obs.MetricsServer(slo_plane=plane) as srv:
+        check(srv.host == "127.0.0.1", "metrics server not on loopback")
+        with urllib.request.urlopen(srv.url("/metrics"), timeout=30) as r:
+            scraped = obs.parse_prometheus_text(r.read().decode())
+    record("region_serve", trace="a_region", metric_plane=dict(
+        region_solve_cells=served, latency_count=rec["latency_count"],
+        slo_verdicts={v["name"]: v["verdict"] for v in verdicts},
+        scraped_series=len(scraped),
+        scraped_solve_cells=scraped.get(("region_solve_cells_total", ()))))
+    check(served == rec["latency_count"] == SERVE_REQUESTS,
+          f"region serve (a): the metric plane counts {served} solved cells "
+          f"and {rec['latency_count']} latencies for {SERVE_REQUESTS}")
+    check([v["name"] for v in verdicts] == ["serve_latency_p99",
+                                            "deadline_hit_rate",
+                                            "bcd_convergence"]
+          and all(v["verdict"] in ("ok", "warn", "breach", "no_data")
+                  for v in verdicts), f"region serve: SLO verdicts {verdicts}")
+    check(scraped.get(("region_solve_cells_total", ())) == served,
+          "region serve: the /metrics scrape disagrees with the registry")
+    return counts["sp1_lambda_sum"]
+
+
+def serve_pool_b(torch):
+    """Trace (b): the padded pool's 64 cells as cold requests (recorded),
+    a warm wave with 1% drift, the cold wave again at depth 1, one batch
+    solved directly on its plan (traced with torch.profiler)."""
+    import numpy as np
+
+    from repro_torch import AllocationRequest, Problem, SolverSpec, obs, \
+        solve
+
+    cells, sizes = pool_cells(torch, torch.float32, device="cpu")
+    cold = [AllocationRequest(cell_id=c, sys=s) for c, s in enumerate(cells)]
+    rng = np.random.default_rng(SERVE_SEED)
+    warm = [AllocationRequest(cell_id=c, sys=s.replace(
+        gain=s.gain * torch.from_numpy(np.abs(
+            1.0 + SERVE_DRIFT * rng.standard_normal(s.n))).float()))
+        for c, s in enumerate(cells)]
+    obs.REGISTRY.reset()
+    pipe = serve_pipeline()
+    events = obs.MemoryRecorder()
+    with obs.recording(events):
+        (futs, batches), counts, reads, wall = counted(
+            torch, lambda: serve(pipe, [cold]))
+    rec_c = served_record(torch, "b_pool_cold", pipe, futs, batches, counts,
+                          reads, wall)
+    obs.REGISTRY.reset()
+    (futs_w, batches_w), counts_w, reads_w, wall_w = counted(
+        torch, lambda: serve(pipe, [warm]))
+    rec_w = served_record(torch, "b_pool_warm", pipe, futs_w, batches_w,
+                          counts_w, reads_w, wall_w)
+    names = {e["name"] for e in events.events}
+    n_points = sum(e["name"] == "request" for e in events.events)
+    check({"plan", "dispatch", "materialize", "solve"} <= names
+          and n_points == len(cold),
+          f"region serve (b): recorded events {sorted(names)}, {n_points} "
+          f"request points for {len(cold)} responses")
+    check(rec_w["warm_solves"] == len(warm)
+          and rec_w["mean_warm_iters"] < rec_c["mean_cold_iters"],
+          f"region serve (b): warm wave {rec_w['warm_solves']} warm, mean "
+          f"{rec_w['mean_warm_iters']} iterations vs cold "
+          f"{rec_c['mean_cold_iters']}")
+
+    pipe1 = serve_pipeline(depth=1)
+    futs1, _ = serve(pipe1, [cold])
+    same_depth = same_responses(torch, futs1, futs)
+
+    plan = batches[0].plan
+    res = solve(Problem(system=plan.sys_batch, weights=plan.weights,
+                        init=plan.init_batch), SolverSpec(**SERVE_SPEC))
+    direct_same = True
+    for lane, f in enumerate(futs[:plan.n_real]):
+        r, n = f.result(), f.request.sys.n
+        direct_same &= r.iters == int(res.iters[lane])
+        for k in ("bandwidth", "power", "freq", "resolution"):
+            direct_same &= torch.equal(getattr(r.allocation, k),
+                                       getattr(res.allocation, k)[lane, :n]
+                                       .cpu())
+    record("region_serve", trace="b_pool", C=SERVE_CPB, bucket=FLEET_N,
+           cells=len(cells), devices=[min(sizes), max(sizes)],
+           depth1_bitwise=same_depth, direct_solve_bitwise=direct_same,
+           recorded_events=len(events.events), request_points=n_points)
+    check(same_depth, "region serve (b): depth 1 and depth 2 responses "
+                      "differ")
+    check(direct_same, "region serve (b): the direct solve of a batch's plan "
+                       "differs from its served responses")
+    return counts["sp1_lambda_sum"] + counts_w["sp1_lambda_sum"]
+
+
+def trace_served_batch(torch):
+    """One batch of trace (b) (the pool's first SERVE_CPB cells, cold)
+    served under torch.profiler with a recorder on: the card's idle share,
+    and every sp1_lambda_sum kernel inside the `solve` span's range (each
+    call runs two kernels, its partial and its final sums; 3 calls a
+    batched BCD iteration)."""
+    from repro_torch import AllocationRequest, obs
+
+    cells, _ = pool_cells(torch, torch.float32, SERVE_CPB, device="cpu")
+    cold = [AllocationRequest(cell_id=c, sys=s) for c, s in enumerate(cells)]
+    pipe = serve_pipeline()
+    with obs.recording(obs.MemoryRecorder()):
+        ((futs, batches), counts, reads, _), rec = trace_call(
+            torch, lambda: counted(torch, lambda: serve(pipe, [cold])),
+            within="solve")
+    batched = int(batches[0].result.iters.max())
+    sp1_in = rec["within"]["sp1_lambda_sum"]
+    record("profile", topology="region_serve_batch", C=SERVE_CPB,
+           N=FLEET_N, dtype="float32", batches=len(batches),
+           batched_iters=batched, host_reads=reads, launches=counts, **rec)
+    check(len(batches) == 1 and sp1_in["inside"] == 2 * 3 * batched
+          and sp1_in["outside"] == 0,
+          f"region serve: the traced batch's solve range holds "
+          f"{sp1_in['inside']} sp1_lambda_sum kernels ({sp1_in['outside']} "
+          f"outside it) for {batched} batched iterations (want 2 x 3 each)")
+
+
+def serve_mesh(torch):
+    """`Problem.mesh` on the C=64 x N=2048 fleet: shard-local and lockstep
+    over `region_mesh()` equal the plain fleet solve bit for bit; the one
+    shard's counters equal the fleet's sums."""
+    from repro_torch import Problem, SolverSpec, Weights, region_mesh, solve
+
+    fleet = fleet_system(torch, torch.float32)
+    spec = SolverSpec(max_iters=FLEET_ITERS)
+    mesh = region_mesh()
+    base, counts, reads, wall = counted_solve(
+        torch, Problem(system=fleet, weights=Weights(*WEIGHTS)), spec)
+    sums = base.counters.data.double().sum(0).tolist()
+    out = {}
+    for lockstep in (False, True):
+        reg, counts_m, reads_m, wall_m = counted_solve(
+            torch, Problem(system=fleet, weights=Weights(*WEIGHTS),
+                           mesh=mesh), spec.replace(lockstep=lockstep))
+        same = all(torch.equal(getattr(reg.allocation, k),
+                               getattr(base.allocation, k))
+                   for k in ("bandwidth", "power", "freq", "resolution",
+                             "s_relaxed", "T")) \
+            and torch.equal(reg.iters, base.iters) \
+            and torch.equal(reg.objective, base.objective)
+        st = reg.stats
+        shard = [st["shard_bcd_iters"], st["shard_sp1_evals"],
+                 st["shard_sp2_evals"]]
+        out["lockstep" if lockstep else "shard_local"] = dict(
+            bitwise=same, wall_s=wall_m, launches=counts_m,
+            host_reads=reads_m, mesh_devices=st["mesh_devices"],
+            shard_counters=shard)
+        check(same, f"region mesh (lockstep={lockstep}): differs from the "
+                    f"fleet solve")
+        check(st["mesh_devices"] == mesh.size == 1
+              and [s[0] for s in shard] == sums[:3],
+              f"region mesh: shard counters {shard} vs fleet sums "
+              f"{sums[:3]}")
+    record("region_serve", trace="mesh", C=FLEET_C, N=FLEET_N,
+           devices=[str(d) for d in mesh.devices], fleet_wall_s=wall,
+           fleet_counter_sums=sums[:3], **out)
+
+
+class CheckedService:
+    """A RegionAllocator whose `solve` also holds every response to its
+    request (finite, feasible on the unpadded allocation)."""
+
+    def __init__(self, torch, svc):
+        self.torch, self.svc, self.bad, self.n = torch, svc, 0, 0
+
+    def solve(self, reqs):
+        out = self.svc.solve(reqs)
+        for r in reqs:
+            resp = out[r.cell_id]
+            feas = feasible_cells(self.torch, r.sys, resp.allocation)
+            self.bad += not (all(feas.values())
+                             and math.isfinite(resp.objective))
+            self.n += 1
+        return out
+
+    def invalidate(self, cell_id):
+        return self.svc.invalidate(cell_id)
+
+    @property
+    def stats(self):
+        return self.svc.stats
+
+    @property
+    def compiled_shapes(self):
+        return self.svc.compiled_shapes
+
+
+def serve_mobility(torch):
+    """Trace (c): `replay_mobility` of a random-waypoint trace over
+    MOB_CELLS cells of the port's bs_grid through a RegionAllocator."""
+    from repro_torch import (MobilityConfig, RegionAllocator, SolverSpec,
+                             Weights, make_system, obs, replay_mobility,
+                             simulate_mobility)
+
+    cfg = MobilityConfig(**MOB_CFG)
+    trace = simulate_mobility(MOB_SEED, MOB_DEVICES, MOB_CELLS, cfg,
+                              device="cuda")
+    base = make_system(MOB_SEED, MOB_DEVICES, device="cpu",
+                       bandwidth_total=20e6 * MOB_DEVICES / MOB_CELLS / 50)
+    svc = CheckedService(torch, RegionAllocator(
+        Weights(*WEIGHTS), cells_per_batch=MOB_CELLS,
+        min_bucket=MOB_MIN_BUCKET, spec=SolverSpec(**SERVE_SPEC),
+        pipeline_depth=SERVE_DEPTH, device="cuda"))
+    obs.REGISTRY.reset()
+    rep, counts, reads, wall = counted(
+        torch, lambda: replay_mobility(svc, trace, base))
+    lat = obs.histogram("region_request_latency_seconds")
+    sizes = torch.stack([torch.bincount(row.long(), minlength=MOB_CELLS)
+                         for row in trace.serving])       # (R, C)
+    batches = svc.stats["batches"]
+    record("region_serve", trace="c_mobility", config=dict(MOB_CFG),
+           wall_s=wall,
+           requests_per_s=rep["requests"] / wall,
+           latency_p50_s=lat.percentile(50.0),
+           latency_p99_s=lat.percentile(99.0), launches=counts,
+           host_reads=reads, batches=batches,
+           sp1_launches_per_batch=counts["sp1_lambda_sum"] / batches,
+           host_reads_per_batch=reads / batches,
+           cell_sizes=[int(sizes.min()), int(sizes.max())],
+           stage_clocks=svc.svc.clocks.as_dict(), infeasible=svc.bad,
+           **{k: v for k, v in rep.items()})
+    check(svc.bad == 0 and svc.n == rep["requests"] > 0,
+          f"region serve (c): {svc.bad} of {svc.n} responses infeasible or "
+          f"non-finite")
+    check(rep["handover_purges"] <= 2 * rep["handovers"]
+          and rep["warm_solves"] + rep["cold_solves"] == rep["requests"],
+          f"region serve (c): churn summary {rep}")
+    check(counts["sp1_lambda_sum"] > 0, "region serve (c): sp1_lambda_sum "
+                                        "never ran")
+    return counts["sp1_lambda_sum"]
+
+
+def serve_card_vs_cpu(torch):
+    """Trace (a) cut to its first SERVE_CPU_CELLS cells and
+    SERVE_CPU_REQUESTS requests, float64, served on the card and on the
+    CPU: the same responses to 1e-8, iterations, warm flags, buckets and
+    serving tallies; summed SP2 evals within EV_SLACK_PER_ITER a BCD
+    iteration (ROADMAP Queue 3)."""
+    ticks = serve_trace(torch, SERVE_CPU_CELLS, SERVE_CPU_REQUESTS,
+                        torch.float64)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        pipe = serve_pipeline(device=device)
+        t0 = time.perf_counter()
+        futs, _ = serve(pipe, ticks)
+        runs[device] = ([f.result() for f in futs], pipe.stats,
+                        time.perf_counter() - t0)
+    (rg, sg, tg), (rc, sc, tc) = runs["cuda"], runs["cpu"]
+    rel = 0.0
+    same = len(rg) == len(rc)
+    for a, b in zip(rg, rc):
+        same &= (a.cell_id, a.iters, a.warm, a.bucket, a.converged) \
+            == (b.cell_id, b.iters, b.warm, b.bucket, b.converged)
+        rel = max(rel, abs(a.objective - b.objective) / abs(b.objective))
+        for k in ("bandwidth", "power", "freq", "resolution"):
+            x, y = getattr(a.allocation, k), getattr(b.allocation, k)
+            rel = max(rel, float((x - y).abs().max() / y.abs().max()))
+    keys = ("requests", "batches", "shapes", "cache_hits", "cache_misses",
+            "handover_purges", "cells_solved", "cells_converged")
+    same_stats = all(sg[k] == sc[k] for k in keys)
+    cg, cc = sg["solver_counters"], sc["solver_counters"]
+    ev_gap = abs(cg["sp2_evals"] - cc["sp2_evals"])
+    record("card_vs_cpu", topology="region_serve", cells=SERVE_CPU_CELLS,
+           requests=len(rc), dtype="float64", max_rel_diff=rel,
+           same_responses=same, same_stats=same_stats,
+           stats={k: sorted(sc[k]) if k == "shapes" else sc[k]
+                  for k in keys},
+           bcd_iters=[cg["bcd_iters"], cc["bcd_iters"]],
+           sp2_evals=[cg["sp2_evals"], cc["sp2_evals"]], card_s=tg,
+           cpu_s=tc)
+    check(same and rel <= 1e-8,
+          f"card vs CPU, region serve: responses differ (rel {rel:.3g}, "
+          f"same fields {same})")
+    check(same_stats and cg["bcd_iters"] == cc["bcd_iters"]
+          and cg["sp1_evals"] == cc["sp1_evals"],
+          "card vs CPU, region serve: serving tallies differ")
+    check(ev_gap <= EV_SLACK_PER_ITER * cc["bcd_iters"],
+          f"card vs CPU, region serve: sp2_evals differ by {ev_gap}")
+
+
+def phase_region_serve(torch):
+    """The region serving stack on the card: traces (a), (b) and (c), the
+    mesh, and trace (a) cut to 12 cells card vs CPU in float64."""
+    launches = serve_trace_a(torch)
+    launches += serve_pool_b(torch)
+    serve_mesh(torch)
+    launches += serve_mobility(torch)
+    serve_card_vs_cpu(torch)
+    return dict(launches=dict(sp1_lambda_sum=launches))
+
+
 def grad_rel(torch, a, b):
     """The largest differences of two GradResults' values and of their
     gradients, each relative to the array's largest entry: (values,
@@ -1178,10 +1675,70 @@ def grad_rel(torch, a, b):
                 for m in a.grads for k in a.grads[m]))
 
 
+class _CardLog1p:
+    """torch, with log1p evaluated on the card (a stand-in for the `torch`
+    module inside `core.sp2` while an SP2 search is replayed)."""
+
+    def __init__(self, torch):
+        self._torch = torch
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def log1p(self, x):
+        return self._torch.log1p(x.cuda()).cpu()
+
+
+def sp2_gap(torch, calls, iters):
+    """The SP2 search (round, BCD iteration, cell) with the largest eval
+    gap between the card's and the CPU's rounds runs, and replays of it:
+    on the CPU with the card's inputs; on the card again; on the CPU with
+    the CPU's inputs and the card's exp; and with the card's exp and
+    log1p. `calls` holds each run's (system, rmin, evals) per SP2 search
+    in order; `iters` (C, R) the BCD iterations of each cell and round."""
+    from repro_torch.core import sp2
+
+    card, cpu = calls["card"], calls["cpu"]
+    batched = iters.amax(0).long().tolist()
+    where = [(r, k) for r, n in enumerate(batched) for k in range(n)]
+    gaps = torch.stack([(a[2].cpu().long() - b[2].long()).abs()
+                        for a, b in zip(card, cpu)])           # (calls, C)
+    i, c = divmod(int(gaps.argmax()), gaps.shape[1])
+    (sys_g, rmin_g, ev_g), (sys_c, rmin_c, ev_c) = card[i], cpu[i]
+
+    def evals(sysp, rmin):
+        return int(sp2._sp2_direct_impl(sysp, rmin)[2][c])
+
+    def rel(a, b):
+        a, b = a.cpu()[c].double(), b.cpu()[c].double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    exp2 = sp2._exp2
+    replay = dict(cpu_with_card_inputs=evals(sys_g.to("cpu"), rmin_g.cpu()),
+                  card_again=evals(sys_g, rmin_g))
+    try:
+        sp2._exp2 = lambda x: torch.exp((x * sp2._LN2).cuda()).cpu()
+        replay["cpu_inputs_card_exp"] = evals(sys_c, rmin_c)
+        sp2.torch = _CardLog1p(torch)
+        replay["cpu_inputs_card_exp_log1p"] = evals(sys_c, rmin_c)
+    finally:
+        sp2._exp2 = exp2
+        sp2.torch = torch
+    r, k = where[i] if i < len(where) else (None, None)
+    return dict(round=r, bcd_iteration=None if k is None else k + 1,
+                cell=c, sp2_search=i, gap=int(gaps[i, c]),
+                evals_card=int(ev_g[c]), evals_cpu=int(ev_c[c]),
+                cell_bcd_iters=None if r is None else int(iters[c, r]),
+                gaps_per_search=gaps.amax(1).tolist(),
+                rmin_rel_diff=rel(rmin_g, rmin_c),
+                gain_rel_diff=rel(sys_g.gain, sys_c.gain), replay=replay)
+
+
 def card_vs_cpu_dynamics(torch):
     """Rounds and solve_and_grad on the card and on the CPU in float64."""
     from repro_torch import (Problem, RoundsConfig, SolverSpec, Weights,
                              make_system, solve)
+    from repro_torch.core import bcd
     from repro_torch.diff import implicit, solve_and_grad
     from repro_torch.dynamics import ROUND_COLS, draws_from_generator
 
@@ -1190,9 +1747,25 @@ def card_vs_cpu_dynamics(torch):
     cfg = RoundsConfig(**CPU_ROUNDS)
     draws = draws_from_generator(ROUNDS_SEED, 4, cfg.rounds, CPU_N, cfg,
                                  device="cuda", dtype=torch.float64)
-    gpu = solve(Problem(system=four, weights=weights, rounds=cfg, key=draws))
-    cpu = solve(Problem(system=four.to("cpu"), weights=weights, rounds=cfg,
-                        key=draws.to("cpu")))
+    calls = {}
+    sp2_impl = bcd._sp2_direct_impl
+
+    def spy(tag):
+        def run(sysp, rmin, *a, **kw):
+            out = sp2_impl(sysp, rmin, *a, **kw)
+            calls.setdefault(tag, []).append((sysp, rmin, out[2]))
+            return out
+        return run
+
+    try:
+        bcd._sp2_direct_impl = spy("card")
+        gpu = solve(Problem(system=four, weights=weights, rounds=cfg,
+                            key=draws))
+        bcd._sp2_direct_impl = spy("cpu")
+        cpu = solve(Problem(system=four.to("cpu"), weights=weights,
+                            rounds=cfg, key=draws.to("cpu")))
+    finally:
+        bcd._sp2_direct_impl = sp2_impl
     lg, lc = gpu.ledger.cpu(), cpu.ledger
     ev = ROUND_COLS.index("sp2_evals")
     cols = [i for i in range(len(ROUND_COLS)) if i != ev]
@@ -1203,11 +1776,20 @@ def card_vs_cpu_dynamics(torch):
     iters = lc[..., ROUND_COLS.index("bcd_iters")]
     same_iters = torch.equal(lg[..., ROUND_COLS.index("bcd_iters")], iters)
     same_codes = torch.equal(gpu.staleness.cpu(), cpu.staleness)
+    gap_at = (lg[..., ev] - lc[..., ev]).abs()                 # (C, R)
+    worst = divmod(int(gap_at.argmax()), gap_at.shape[1])
     record("card_vs_cpu", topology="rounds", C=4, N=CPU_N, dtype="float64",
            config=CPU_ROUNDS, n_late=float(gpu.col("n_late").sum()),
            ledger_max_rel_diff=ledger_rel,
-           sp2_evals_max_gap=ev_gap, same_bcd_iters=same_iters,
-           same_staleness=same_codes)
+           sp2_evals_max_gap=ev_gap,
+           sp2_evals_max_gap_at=dict(
+               cell=worst[0], round=worst[1],
+               bcd_iters=float(iters[worst]),
+               bound=EV_SLACK_PER_ITER * float(iters[worst])),
+           same_bcd_iters=same_iters, same_staleness=same_codes)
+    if same_iters:
+        record("card_vs_cpu", topology="rounds_sp2_gap",
+               **sp2_gap(torch, calls, iters.long()))
     check(same_iters, "card vs CPU, rounds: BCD iteration counts differ")
     check(same_codes, "card vs CPU, rounds: staleness codes differ")
     check(ledger_rel <= 1e-8, f"card vs CPU, rounds: ledger rel diff "
@@ -1404,25 +1986,29 @@ def device_ms(torch, fn, reps, key):
     matches the pattern `key` (each launched once per call), its self
     device time over the launches the profile caught, summed over those
     kernels. The profile can miss the first few launches it traces, so
-    each kernel is averaged over its own count. Event timing of
-    back-to-back calls measures the host once a kernel is faster than its
-    wrapper; this reads the card alone. Returns (ms, {kernel: {"launches":
-    caught, "ms": its device ms per launch}})."""
+    each kernel is averaged over its own count; a profile that caught none
+    is taken again with twice the calls, up to three times. Event timing
+    of back-to-back calls measures the host once a kernel is faster than
+    its wrapper; this reads the card alone. Returns (ms, {kernel:
+    {"launches": caught, "ms": its device ms per launch}})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = {e.key[:80]: dict(launches=e.count,
-                             ms=e.self_device_time_total / 1e3 / e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and re.search(key, e.key)
-            and e.count}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps << attempt):
+                fn()
+            torch.cuda.synchronize()
+        hits = {e.key[:80]: dict(launches=e.count,
+                                 ms=e.self_device_time_total / 1e3 / e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and re.search(key, e.key) and e.count}
+        if hits:
+            break
     check(hits, f"device_ms: the profile shows no kernel matching {key!r}")
     return sum(h["ms"] for h in hits.values()), hits
 
@@ -1746,7 +2332,8 @@ def phase_profile(torch):
     """The fleet solve, the deadline-fleet solve, the padded pool's solve,
     one warm round of the rounds fleet (the round after a first, untraced
     one, warm-started from its allocation), one `solve_and_grad` on the
-    fleet and one warm Theorem-2 call on the region, traced."""
+    fleet, one warm Theorem-2 call on the region and one served batch of
+    the region serving stack, traced."""
     from repro_torch import Problem, RoundsConfig, SolverSpec, Weights, solve
     from repro_torch.core.sp2 import solve_sp2_v2_thm2
     from repro_torch.diff import solve_and_grad
@@ -1782,6 +2369,7 @@ def phase_profile(torch):
     check(counts["waterfill_gprime"] == 4,
           f"region: {counts['waterfill_gprime']} waterfill_gprime launches "
           "in the traced Theorem-2 call, want 4")
+    trace_served_batch(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -2111,10 +2699,13 @@ PORT_KERNEL_KEY = re.compile(
     r"\(anonymous namespace\)(" + "|".join(DEVICE_KEYS.values()) + ")")
 
 
-def trace_call(torch, fn):
+def trace_call(torch, fn, within=None):
     """fn() under torch.profiler: its wall time, the card's busy time and
     idle share, the kernels that take the most time, and each of the
-    port's own kernels that ran. Returns (fn's result, record).
+    port's own kernels that ran. With `within` (the name of a
+    record_function range, such as an obs span's), each port kernel's
+    launches that ran inside and outside that range (`within` in the
+    record). Returns (fn's result, record).
 
     The device events are read off the profiler's raw kineto events:
     building `key_averages()` costs ~60 us an event on the host, minutes
@@ -2130,11 +2721,31 @@ def trace_call(torch, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}                          # name -> [calls, device ns]
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
+    events = prof.profiler.kineto_results.events()
+    # a record_function range (an obs span) also shows on the card's
+    # timeline as a user annotation: it is not a kernel
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
             k = kernels.setdefault(e.name(), [0, 0])
             k[0] += 1
             k[1] += e.duration_ns()
+    extra = {}
+    if within is not None:
+        spans = [(e.start_ns(), e.end_ns()) for e in events
+                 if e.device_type() == DeviceType.CPU
+                 and e.name() == within]
+        extra["within"] = {name: dict(inside=0, outside=0)
+                           for name in DEVICE_KEYS}
+        for e in events:
+            if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+                continue
+            for name, key in DEVICE_KEYS.items():
+                if re.search(key, e.name()):
+                    inside = any(lo <= e.start_ns() and e.end_ns() <= hi
+                                 for lo, hi in spans)
+                    extra["within"][name]["inside" if inside
+                                          else "outside"] += 1
+        extra["within_ranges"] = len(spans)
     busy_ms = sum(k[1] for k in kernels.values()) / 1e6
     rows = [dict(name=name[:80], calls=k[0], device_ms=k[1] / 1e6)
             for name, k in kernels.items()]
@@ -2144,7 +2755,7 @@ def trace_call(torch, fn):
         kernel_launches=sum(k[0] for k in kernels.values()),
         top_kernels=sorted(rows, key=lambda r: -r["device_ms"])[:8],
         port_kernels=[r for name, r in zip(kernels, rows)
-                      if PORT_KERNEL_KEY.search(name)])
+                      if PORT_KERNEL_KEY.search(name)], **extra)
 
 
 def phase_lm_serve(torch):

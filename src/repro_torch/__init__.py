@@ -19,7 +19,14 @@ padding of mixed-size cell pools onto one bucket with masked lanes
 `dynamics.RoundsConfig`: sampled or Markov fading, warm-started
 re-allocation, dropout and stale participation, its draws given as a
 `RoundDraws` or drawn from a `torch.Generator`) and mobility traces
-(`dynamics.simulate_mobility`); implicit gradients of the allocation
+(`dynamics.simulate_mobility`, replayed through the serving front-end by
+`dynamics.replay_mobility`); the region serving stack (`region`: the
+admission -> planning -> dispatch -> completion `RegionPipeline`, its
+synchronous facade `RegionAllocator`, and `Problem.mesh` with
+`region_mesh` and `SolverSpec.lockstep`); telemetry (`obs`: spans and
+points, the metric registry and its Prometheus / JSONL exporters, SLO
+burn rates, the `MetricsServer` scrape endpoint, torch.profiler
+sessions); implicit gradients of the allocation
 (`diff.solve_and_grad`, with `diff.tune_weights`, `diff.pareto_sweep` and
 the learned accuracy surrogate); the paper-literal Theorem-2 SP2 solve
 (`core.sp2.solve_sp2_v2_thm2`) and the paper's baselines
@@ -41,8 +48,14 @@ from .core import (AccuracyModel, Allocation, BCDResult, FleetResult,
                    make_system, stack_systems)
 from .diff import GradResult, solve_and_grad
 from .dynamics import (MobilityConfig, MobilityTrace, RoundDraws,
-                       RoundsConfig, RoundsResult, simulate_mobility)
-from .region import bucket_size, inactive_system, pad_system
+                       RoundsConfig, RoundsResult, replay_mobility,
+                       simulate_mobility)
+from .region import (AllocationRequest, CellResponse, CloseOnFull,
+                     DeadlineSlack, MaxWait, PendingResponse,
+                     RegionAllocator, RegionPipeline, RegionResult,
+                     StageClocks, bucket_size, inactive_system, pad_system,
+                     region_mesh)
+from . import obs
 
 __all__ = [
     "Problem", "SolverSpec", "TolFloorWarning", "WeightsLike",
@@ -52,6 +65,9 @@ __all__ = [
     "make_system", "stack_systems",
     "GradResult", "solve_and_grad",
     "MobilityConfig", "MobilityTrace", "RoundDraws", "RoundsConfig",
-    "RoundsResult", "simulate_mobility",
+    "RoundsResult", "replay_mobility", "simulate_mobility",
     "bucket_size", "inactive_system", "pad_system",
+    "AllocationRequest", "CellResponse", "CloseOnFull", "DeadlineSlack",
+    "MaxWait", "PendingResponse", "RegionAllocator", "RegionPipeline",
+    "RegionResult", "StageClocks", "region_mesh", "obs",
 ]

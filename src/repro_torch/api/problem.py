@@ -9,7 +9,9 @@ objective weights and the optional extras; `solve` routes on its topology:
                                       cell or fleet
   * ``rounds`` set                 -> the round-dynamics engine, single
                                       cell or fleet
-  * ``mesh`` / ``assoc`` set       -> not ported yet (NotImplementedError)
+  * ``mesh`` set (a (C, N) stack)  -> the cell axis split over a
+                                      `region.RegionMesh`
+  * ``assoc`` set                  -> not ported yet (NotImplementedError)
 
 Weights are data: `weights_leaf` lowers them to a (3,) / (C, 3) tensor,
 so every cell can weigh energy / latency / accuracy differently.
@@ -103,8 +105,10 @@ class Problem:
     key : the draws of a rounds problem (required with `rounds`): a
         `dynamics.RoundDraws`, a `torch.Generator` on the system's device,
         or an integer seed for one.
-    mesh, assoc : the topologies of `repro.api.Problem` that a later slice
-        ports; `solve` raises NotImplementedError when one is set.
+    mesh : a `region.RegionMesh` (`region_mesh`): a (C, N) stack's cells
+        are split over its devices (free, deadline and rounds solves).
+    assoc : the association topology of `repro.api.Problem`, which a later
+        slice ports; `solve` raises NotImplementedError when it is set.
     """
     system: SystemParams
     weights: WeightsLike

@@ -132,16 +132,16 @@ class SolverSpec:
     keep_history : materialize the per-iteration ledger host-side
         (single-cell results only; False skips the device->host copy — the
         serving hot path).
-    lockstep : region meshes only — True keeps the pure-jit GSPMD path
-        whose BCD while_loop all-reduces across shards; False (default)
-        runs shard_map with shard-local convergence exit.
+    lockstep : mesh problems only — True solves every shard's cells as
+        one batch, so every shard runs the global number of batched
+        iterations; False (default) solves each shard's cells with its own
+        convergence exit (`region.mesh`).
     dtype : None (follow the system's leaf dtype, default), "float32", or
         "float64" — an explicit policy casts system/init leaves before the
         solve and makes the tol floor check a hard error.
 
     The spec accepts every value `repro`'s does, and `repro_torch.solve`
-    runs every engine; `lockstep=True` is rejected until the mesh topology
-    is ported (ROADMAP.md Queue 1).
+    runs every engine.
     """
     max_iters: int = 20
     tol: float = DEFAULT_TOL

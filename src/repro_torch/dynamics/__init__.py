@@ -13,18 +13,21 @@ Public API:
     MobilityConfig, MobilityTrace,           mobility traces (RWP /
     MobilityDraws, simulate_mobility,        Gauss-Markov) and their gains
     trace_gains
+    replay_mobility                          a trace driven through the
+                                             region serving front-end
 
 Not ported: the deprecated shims `run_rounds` / `run_rounds_fleet` (use
-`solve`), and `replay_mobility`, which drives the region serving pipeline
-(ROADMAP Queue 1 item 9).
+`solve`).
 """
 from .config import ROUND_COLS, RoundsConfig, RoundsResult
 from .engine import RoundDraws, draws_from_generator
 from .mobility import (MobilityConfig, MobilityDraws, MobilityTrace,
-                       mobility_draws, simulate_mobility, trace_gains)
+                       mobility_draws, replay_mobility, simulate_mobility,
+                       trace_gains)
 from .participation import queue_step, staleness_of
 
 __all__ = ["ROUND_COLS", "RoundsConfig", "RoundsResult", "RoundDraws",
            "draws_from_generator", "queue_step", "staleness_of",
            "MobilityConfig", "MobilityDraws", "MobilityTrace",
-           "mobility_draws", "simulate_mobility", "trace_gains"]
+           "mobility_draws", "replay_mobility", "simulate_mobility",
+           "trace_gains"]

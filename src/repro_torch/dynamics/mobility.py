@@ -1,7 +1,6 @@
 """Mobility traces: moving devices and their gains to every cell.
 
-Port of `repro/dynamics/mobility.py` (without `replay_mobility`, which
-drives the region serving pipeline: ROADMAP Queue 1 item 9).
+Port of `repro/dynamics/mobility.py`.
 
   * position models, one loop over steps each:
       - "rwp": random waypoint: walk to a uniform waypoint at a uniform
@@ -10,7 +9,10 @@ drives the region serving pipeline: ROADMAP Queue 1 item 9).
   * gains: positions -> distance to every base station -> pathloss
     (128.1 + 37.6 log10 d_km) with AR(1) lognormal shadowing per
     (cell, device) link (`drift_rho`, `core.channel.drift_shadowing`);
-  * events: per-step serving cell (argmax gain) and handover flags.
+  * events: per-step serving cell (argmax gain) and handover flags;
+  * `replay_mobility`: a trace driven through the region serving
+    front-end (`region.RegionAllocator`), with warm-cache purges on
+    handover.
 
 Draws are inputs: every function reads a `MobilityDraws`, which
 `mobility_draws` makes from a `torch.Generator` and
@@ -274,3 +276,65 @@ def simulate_mobility(key: Union[MobilityDraws, GeneratorLike],
     prev = torch.cat([serving[:1], serving[:-1]], 0)
     return MobilityTrace(positions=pos, gains=gains, serving=serving,
                          handover=serving != prev, bs_xy=bs_xy)
+
+
+def replay_mobility(service, trace: MobilityTrace, base,
+                    w=None) -> dict:
+    """Drive a region serving front-end with a mobility trace.
+
+    Per step: cells whose member set changed since the previous step (either
+    side of a handover) are invalidated (`service.invalidate` ->
+    `handover_purges`), then every non-empty cell re-requests an allocation
+    with its members' realized gains. `base` is a single-cell
+    `SystemParams` carrying the N devices' attributes (cycles/samples/bits
+    and the cell scalars, reused for every cell); `w` optionally overrides
+    the service's default weights per request. Requests are built on the
+    host, in `base`'s dtype (the trace's gains are cast to it).
+
+    Returns the churn summary: handover counts, purges, warm-cache hit
+    rate, mean warm/cold re-solve iterations, and the batch shapes.
+    """
+    from ..region.admission import AllocationRequest
+
+    serving = trace.serving.cpu()
+    gains = trace.gains.cpu()
+    R, C, N = gains.shape
+    if base.n != N:
+        raise ValueError(f"replay_mobility: base system has {base.n} "
+                         f"devices, trace has {N}")
+    base = base.to("cpu")
+    gains = gains.to(base.dtype)
+    warm_iters, cold_iters = [], []
+    handovers = 0
+    for r in range(R):
+        if r:
+            moved = torch.nonzero(serving[r] != serving[r - 1])[:, 0]
+            handovers += int(moved.numel())
+            touched = set(serving[r - 1][moved].tolist()) \
+                | set(serving[r][moved].tolist())
+            for cid in sorted(touched):
+                service.invalidate(int(cid))
+        reqs = []
+        for cid in range(C):
+            members = torch.nonzero(serving[r] == cid)[:, 0]
+            if members.numel() == 0:
+                continue
+            sysc = base.replace(
+                gain=gains[r, cid, members], cycles=base.cycles[members],
+                samples=base.samples[members], bits=base.bits[members],
+                active=None)
+            reqs.append(AllocationRequest(cell_id=cid, sys=sysc, w=w))
+        for resp in service.solve(reqs).values():
+            (warm_iters if resp.warm else cold_iters).append(int(resp.iters))
+    s = service.stats
+    return dict(
+        steps=R, cells=C, devices=N, handovers=handovers,
+        handover_purges=int(s.get("handover_purges", 0)),
+        requests=int(s["requests"]),
+        hit_rate=s["cache_hits"] / max(s["requests"], 1),
+        warm_solves=len(warm_iters), cold_solves=len(cold_iters),
+        mean_warm_iters=float(np.mean(warm_iters)) if warm_iters
+        else float("nan"),
+        mean_cold_iters=float(np.mean(cold_iters)) if cold_iters
+        else float("nan"),
+        compiled_shapes=sorted(service.compiled_shapes))

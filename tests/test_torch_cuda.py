@@ -752,3 +752,85 @@ def test_mamba_scan_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):               # x's last dim strided
         ms.mamba_scan(dt, A, Bt, Ct,
                       x.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# the region serving stack on the card: the CUDA-only pieces
+# ---------------------------------------------------------------------------
+
+def serve_requests(device, depth=2):
+    """Four small float64 requests (two buckets) through a RegionPipeline
+    solving on `device`; returns (the dispatched batches, the responses)."""
+    import repro_torch as rt
+
+    pipe = rt.RegionPipeline(rt.Weights(0.5, 0.5, 1.0), cells_per_batch=2,
+                             min_bucket=8, spec=rt.SolverSpec(max_iters=6),
+                             max_in_flight=depth, device=device)
+    for cid, n in enumerate((6, 7, 12, 14)):
+        sysp = rt.make_system(40 + cid, n, device="cpu", dtype=torch.float64)
+        pipe.submit(rt.AllocationRequest(cell_id=cid, sys=sysp))
+    batches = pipe.pump(force=True)
+    return batches, pipe.drain()
+
+
+@pytest.mark.cuda
+def test_in_flight_batch_holds_a_cuda_event(cuda):
+    """A batch dispatched on the card holds its result tensors there and a
+    CUDA event recorded after the solve; materializing copies to the
+    host. The card's responses match the CPU pipeline's (float64)."""
+    batches, out = serve_requests(cuda)
+    assert len(batches) == 2
+    for b in batches:
+        assert isinstance(b.event, torch.cuda.Event)
+        assert b.result.allocation.bandwidth.is_cuda
+        assert b.plan.sys_batch.gain.is_cuda and b.materialized
+        assert b.event.query()
+    _, ref = serve_requests("cpu")
+    assert [r.cell_id for r in out] == [r.cell_id for r in ref]
+    for a, b in zip(out, ref):
+        assert a.allocation.bandwidth.device.type == "cpu"
+        assert (a.iters, a.warm, a.bucket) == (b.iters, b.warm, b.bucket)
+        assert abs(a.objective - b.objective) <= 1e-8 * abs(b.objective)
+
+
+@pytest.mark.cuda
+def test_spans_open_nvtx_ranges_and_profiler_ranges(cuda):
+    """On a CUDA build a span pushes an NVTX range (no error) and names a
+    record_function range that holds the card's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.obs import recorder
+
+    assert recorder._NVTX
+    x = torch.ones(256, 256, device=cuda)
+    with obs.recording(obs.MemoryRecorder()) as rec:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with obs.span("cuda_span"):
+                (x @ x).sum()
+            torch.cuda.synchronize()
+    assert [e["name"] for e in rec.events] == ["cuda_span"]
+    assert "cuda_span" in {e.name for e in prof.events()}
+
+
+@pytest.mark.cuda
+def test_default_region_mesh_holds_every_card(cuda):
+    """region_mesh() holds every visible CUDA device; a mesh solve on it
+    equals the fleet solve bit for bit (one card: one shard)."""
+    import repro_torch as rt
+
+    mesh = rt.region_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count()))
+    fleet = make_fleet(3, 5, 64, device=cuda, dtype=torch.float32)
+    w, spec = rt.Weights(0.5, 0.5, 1.0), rt.SolverSpec(max_iters=6)
+    base = rt.solve(rt.Problem(system=fleet, weights=w), spec)
+    for lockstep in (False, True):
+        reg = rt.solve(rt.Problem(system=fleet, weights=w, mesh=mesh),
+                       spec.replace(lockstep=lockstep))
+        for f in ("bandwidth", "power", "freq", "resolution"):
+            assert torch.equal(getattr(reg.allocation, f).cpu(),
+                               getattr(base.allocation, f).cpu()), f
+        assert torch.equal(reg.iters.cpu(), base.iters.cpu())
+        assert reg.stats["mesh_devices"] == mesh.size

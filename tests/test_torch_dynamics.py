@@ -124,7 +124,8 @@ def test_config_and_api_validation(cell):
     with pytest.raises(ValueError, match="RoundsConfig"):
         rt.solve(rt.Problem(system=st, weights=w, rounds=ok, key=0),
                  rt.SolverSpec(max_iters=3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # rounds over a mesh are ported, for a stacked (C, N) system only
+    with pytest.raises(ValueError, match="mesh requires a stacked"):
         rt.solve(rt.Problem(system=st, weights=w, rounds=ok, key=0,
                             mesh=object()))
     with pytest.raises(ValueError, match="RoundDraws.z"):

@@ -170,7 +170,8 @@ def test_keep_history_false_keeps_the_objective(paper_cell):
     assert lean.history == [] and lean.objective == full.objective
 
 
-# rounds alone is ported; rounds over a mesh still waits for the mesh
+# rounds and the mesh are ported: a mesh over one cell raises the
+# reference's ValueError; assoc still waits for ROADMAP item 10
 @pytest.mark.parametrize("extra", [
     dict(rounds=rt.RoundsConfig(rounds=1), key=0, mesh=object()),
     dict(mesh=object()), dict(assoc=object())])
@@ -178,8 +179,13 @@ def test_unported_topologies_raise(paper_cell, extra):
     _, st = paper_cell
     problem = rt.Problem(system=st, weights=rt.Weights(0.5, 0.5, 1.0),
                          **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.solve(problem, rt.SolverSpec())
+    if "assoc" in extra:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 10"):
+            rt.solve(problem, rt.SolverSpec())
+    else:
+        with pytest.raises(ValueError, match="mesh requires a stacked"):
+            rt.solve(problem, rt.SolverSpec())
 
 
 def test_solve_runs_where_the_system_lives(paper_cell):
