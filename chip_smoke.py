@@ -74,6 +74,27 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          token matches the first decode step (the cache hand-over); every
          served flash_attention launch on the wgmma body, both rwkv6
          passes once per rwkv6_scan call;
+       - cross-cell association (`Problem.assoc`), float32,
+         SolverSpec(max_iters=6, tol=1e-4), weights (0.5, 0.5, 5.0), 8
+         outer steps: 16 bs_grid cells over 1 km^2 and 16,384 devices
+         with an 8x bandwidth spread; the partition, capacities, strictly
+         decreasing objectives, every cell feasible, a multiple of 3
+         sp1_lambda_sum launches in every inner solve (its counts and
+         seconds read off the obs spans); outer_iters=0 equals the fleet
+         solve of the nearest association and `region_mesh()` equals no
+         mesh, bit for bit;
+       - FL training (`fl.simulate`) on the paper's cell (N = 50, one FL
+         client each) with the client CNN at its published widths
+         (configs/flmar_cnn.py), 256 frames a client, 10 rounds of 5
+         local iterations under Markov fading and stale participation,
+         at PyTorch's default float32 precision (TF32 convolutions):
+         the ledger finite and consistent, the final accuracy above
+         chance, one round profiled; a second run bit-identical; a third
+         with PyTorch's default algorithms in place of the deterministic
+         ones, timed and profiled, and one client's local training timed
+         with and without them; `launch.flmar.main` with
+         examples/fl_mar_train.py's argv (and once more with full float32
+         convolutions) and `diff.fit_from_training` at its defaults;
      and checks that every output is finite and feasible;
   4. solves on the card and on the CPU (where the plain versions run) in
      float64 and compares them: the paper cell and 4 fleet cells (the
@@ -87,8 +108,12 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      devices from one set of draws (locating the SP2 search with the
      largest eval gap and replaying it on the CPU with the card's inputs
      and with the card's exp / log1p), solve_and_grad on those 4 cells
-     (Neumann) and on the paper cell (the dense adjoint), and the region
-     serving trace (a) cut to 12 cells and 24 requests;
+     (Neumann) and on the paper cell (the dense adjoint), the region
+     serving trace (a) cut to 12 cells and 24 requests, the association
+     recipe cut to 4 cells x 256 devices (the same assignments, moves and
+     iterations, objectives to 1e-9) and FL training cut to 8 clients of
+     64 frames at base 16 over 3 rounds (parameters and ledger to 1e-9,
+     equal round accuracies);
   5. times the warm fleet and deadline-fleet solves (median of 3) and each
      kernel per launch, by CUDA events over back-to-back wrapper calls
      (`ms`, the host included) and by torch.profiler's device time of its
@@ -207,6 +232,43 @@ SERVE_CPU_CELLS, SERVE_CPU_REQUESTS = 12, 24
 # cold.
 MOB_CFG = dict(model="rwp", steps=4)
 MOB_SEED, MOB_CELLS, MOB_DEVICES, MOB_MIN_BUCKET = 9, 16, 16384, 1024
+# Cross-cell association (`Problem.assoc`), float32, with
+# examples/assoc_mobility.py's spec, weights and outer-loop cap over the
+# region of trace (c): 16 bs_grid cells over 1 km^2 and 16,384 devices
+# (~1,024 a cell). The example's 8x bandwidth spread is kept, scaled to the
+# fleet's 20 MHz per 50 devices: cell c gets B0 (1 + 7c/15), B0 such that
+# the cells' mean is 20 MHz x 1024 / 50. The mesh check reruns 2 outer
+# steps. Card vs CPU on a cut of 4 cells x 256 devices, same recipe,
+# float64.
+ASSOC_CELLS, ASSOC_DEVICES, ASSOC_AREA, ASSOC_SEED = 16, 16384, 1000.0, 11
+ASSOC_SPEC = dict(max_iters=6, tol=1e-4)
+ASSOC_WEIGHTS = (0.5, 0.5, 5.0)
+ASSOC_OUTER, ASSOC_MESH_OUTER = 8, 2
+ASSOC_CPU_CELLS, ASSOC_CPU_DEVICES, ASSOC_CPU_TOL = 4, 256, 1e-9
+# FL training. fl.simulate on the paper's cell with the paper's client
+# model at its published widths (configs/flmar_cnn.py: widths (16, 32, 64),
+# 8 classes, base 32, dataset resolutions (8, 16, 24, 32)); N = 50 devices
+# (§VII-A), one client each, 256 frames a client, 10 global rounds of 5
+# local iterations at lr 0.05, weights (0.5, 0.5, 30), under the rounds
+# fleet's fading and participation (Markov 0.9, stale, dropout 0.05) with
+# a deadline slack of 0.98, so some updates arrive late and fedavg_stale
+# takes staleness codes above 0. float32.
+FL_N, FL_PER_CLIENT, FL_ROUNDS, FL_LOCAL, FL_LR = 50, 256, 10, 5, 0.05
+FL_WEIGHTS = (0.5, 0.5, 30.0)
+FL_DYNAMICS = dict(channel_mode="markov", drift_rho=0.9,
+                   participation="stale", dropout_prob=0.05,
+                   deadline_slack=0.98)
+FL_SEED = 13
+# the deterministic scope's cost: one local_train call at these
+# resolutions, this many times with and without it
+FL_SCOPE_RES, FL_SCOPE_REPS = (8, 32), 20
+# card vs CPU, float64, static channels: 8 clients of 64 frames at base 16
+FL_CPU = dict(n=8, per_client=64, base=16, resolutions=(4, 8, 12, 16),
+              rounds=3, local_iters=2)
+FL_CPU_TOL = 1e-9
+# examples/fl_mar_train.py's argv for launch.flmar.main
+FLMAR_ARGV = ["--devices", "8", "--rounds", "25", "--rho", "40",
+              "--per-client", "64"]
 # Algorithm 1 runs ~100k small launches per SP2_v2 solve; the paper cell's
 # "jong" comparison is cut to 3 BCD x 5 Algorithm-1 iterations (the
 # reference's defaults are 20 x 30) to stay inside the run's time limit.
@@ -416,6 +478,9 @@ def main():
     # small launches left the mamba timing's profile with no launch caught
     sp1_paths["region_serve"] = phase(
         "region_serve", phase_region_serve)["launches"]["sp1_lambda_sum"]
+    for name, fn in (("assoc_region", phase_assoc_region),
+                     ("fl_train", phase_fl_train)):
+        sp1_paths[name] = phase(name, fn)["launches"]["sp1_lambda_sum"]
     kernels[0]["launches"] = sum(sp1_paths.values())
     kernels[0]["launches_by_path"] = sp1_paths
     phase("profile", phase_profile)
@@ -2370,6 +2435,449 @@ def phase_profile(torch):
           f"region: {counts['waterfill_gprime']} waterfill_gprime launches "
           "in the traced Theorem-2 call, want 4")
     trace_served_batch(torch)
+
+
+# ---------------------------------------------------------------------------
+# cross-cell association and FL training
+# ---------------------------------------------------------------------------
+
+def assoc_region(torch, n_cells, n_devices, dtype, device="cuda"):
+    """The association region: `make_multicell` over ASSOC_AREA with cell
+    c's bandwidth B0 (1 + 7c / (C - 1)), B0 such that the cells' mean is
+    20 MHz per 50 devices of an average cell."""
+    from repro_torch.assoc import make_multicell
+
+    spread = [1 + 7 * c / max(n_cells - 1, 1) for c in range(n_cells)]
+    b0 = 20e6 * n_devices / 50 / sum(spread)
+    return make_multicell(ASSOC_SEED, n_cells, n_devices, area_m=ASSOC_AREA,
+                          device=device, dtype=dtype,
+                          bandwidth_total=[b0 * s for s in spread])
+
+
+def counting_recorder():
+    """An `obs.MemoryRecorder` whose events also carry the sp1_lambda_sum
+    launch count (`sp1_at`) and the host-read count (`reads_at`) at the
+    moment each was emitted (a span's: at its end)."""
+    from repro_torch import obs
+    from repro_torch.core.loops import while_cells
+    from repro_torch.kernels import sp1_sweep
+
+    class Recorder(obs.MemoryRecorder):
+        def emit(self, event):
+            event.update(sp1_at=sp1_sweep.sp1_lambda_sum.launches,
+                         reads_at=while_cells.host_reads)
+            super().emit(event)
+
+    return Recorder()
+
+
+def same_fleet(torch, a, b):
+    """Two fleet solves equal bit for bit: allocations, iterations,
+    objectives."""
+    fields = ("bandwidth", "power", "freq", "resolution", "s_relaxed", "T")
+    return all(torch.equal(getattr(a.allocation, f), getattr(b.allocation, f))
+               for f in fields) and torch.equal(a.iters, b.iters) \
+        and torch.equal(a.objective, b.objective)
+
+
+def assoc_card_vs_cpu(torch):
+    """The region recipe cut to ASSOC_CPU_CELLS x ASSOC_CPU_DEVICES in
+    float64 on the card and on the CPU: the same assignments, moves,
+    outer iterations and convergence, objectives to ASSOC_CPU_TOL."""
+    import numpy as np
+
+    from repro_torch import Problem, SolverSpec, Weights, solve
+    from repro_torch.assoc import AssocConfig
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        sysb = assoc_region(torch, ASSOC_CPU_CELLS, ASSOC_CPU_DEVICES,
+                            torch.float64, device)
+        t0 = time.perf_counter()
+        runs.append((solve(Problem(
+            system=sysb, weights=Weights(*ASSOC_WEIGHTS),
+            assoc=AssocConfig(outer_iters=ASSOC_OUTER)),
+            SolverSpec(**ASSOC_SPEC)), time.perf_counter() - t0))
+    (g, card_s), (c, cpu_s) = runs
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g.objectives,
+                                                   c.objectives)) \
+        if len(g.objectives) == len(c.objectives) else float("inf")
+    same = (bool(np.array_equal(g.assignment, c.assignment))
+            and g.moves == c.moves and g.outer_iters == c.outer_iters
+            and g.converged == c.converged)
+    differ = np.flatnonzero(g.assignment != c.assignment).tolist() \
+        if g.assignment.shape == c.assignment.shape else None
+    record("card_vs_cpu", topology="assoc", cells=ASSOC_CPU_CELLS,
+           N=ASSOC_CPU_DEVICES, dtype="float64", same_assoc=same,
+           moves=[g.moves, c.moves], outer_iters=[g.outer_iters,
+                                                  c.outer_iters],
+           converged=[g.converged, c.converged], max_rel_objective=rel,
+           assignments_differ_at=differ, card_s=card_s, cpu_s=cpu_s)
+    check(same, f"card vs CPU, assoc: assignments, moves or iterations "
+                f"differ (moves {g.moves} vs {c.moves}, devices {differ})")
+    check(rel <= ASSOC_CPU_TOL,
+          f"card vs CPU, assoc: objectives differ by {rel:.3g}")
+
+
+def phase_assoc_region(torch):
+    """`solve(Problem(assoc=...))` on the 16-cell region: the partition,
+    capacity, strict descent, feasibility, outer_iters=0 = the fleet solve
+    of the nearest association, a mesh = no mesh, every bit; and the cut
+    card vs CPU in float64."""
+    import numpy as np
+
+    from repro_torch import Problem, SolverSpec, Weights, obs, region_mesh
+    from repro_torch import solve
+    from repro_torch.assoc import AssocConfig, nearest_assignment
+
+    sysb = assoc_region(torch, ASSOC_CELLS, ASSOC_DEVICES, torch.float32)
+    spec, w = SolverSpec(**ASSOC_SPEC), Weights(*ASSOC_WEIGHTS)
+    cfg = AssocConfig(outer_iters=ASSOC_OUTER)
+    C, N = ASSOC_CELLS, ASSOC_DEVICES
+    rec = counting_recorder()
+
+    def run():
+        with obs.recording(rec):
+            return solve(Problem(system=sysb, weights=w, assoc=cfg), spec)
+
+    res, counts, reads, wall = counted(torch, run)
+    assign = np.asarray(res.assignment)
+    masked = sysb.with_assignment(assign)
+    served = masked.active.sum(0)
+    load = np.bincount(assign[assign >= 0], minlength=C)
+    cap = cfg.per_cell_capacity(C, N)
+    objs = res.objectives
+    fleet = res.fleet
+    feas = feasible_cells(torch, masked, fleet.allocation)
+    finite = bool(torch.isfinite(fleet.objective).all())
+    # the spans: one assoc_iter an outer step, the inner solves nested
+    # under the assoc solve (the first) and under each step; the counters
+    # of each inner solve are those since the previous one ended (the
+    # host bookkeeping between them launches no sp1_lambda_sum)
+    steps = [e for e in rec.events if e["name"] == "assoc_iter"]
+    inner = [e for e in rec.events
+             if e["name"] == "solve" and e["parent"] != -1]
+    nested = {e["parent"]: e["dur_s"] for e in inner}
+    step_s = [e["dur_s"] for e in steps]
+    step_solve_s = [nested.get(e["span"], 0.0) for e in steps]
+    solve_launches = np.diff([0] + [e["sp1_at"] for e in inner]).tolist()
+    solve_reads = np.diff([0] + [e["reads_at"] for e in inner]).tolist()
+    run_rec = dict(
+        C=C, N=N, dtype="float32", spec=dict(ASSOC_SPEC),
+        weights=list(ASSOC_WEIGHTS), outer_iters_cap=ASSOC_OUTER,
+        wall_s=wall, baseline_objective=objs[0], objective=res.objective,
+        objectives=objs, outer_iters=res.outer_iters, moves=res.moves,
+        converged=res.converged, load=[int(load.min()), int(load.max())],
+        first_solve_s=inner[0]["dur_s"], step_s=step_s,
+        step_solve_s=step_solve_s,
+        bookkeeping_s=[a - b for a, b in zip(step_s, step_solve_s)],
+        final_batched_iters=int(fleet.iters.max()),
+        sp1_launches_per_solve=solve_launches,
+        host_reads_per_solve=solve_reads,
+        launches=counts, host_reads=reads, feasible=feas)
+    record("assoc_region", **run_rec)
+    check(bool((served == 1).all()) and bool((assign >= 0).all()),
+          "assoc region: a device is served by no cell or by several")
+    check(bool((load <= cap).all()), "assoc region: load over capacity")
+    check(all(b < a for a, b in zip(objs, objs[1:]))
+          and res.objective <= objs[0],
+          f"assoc region: objectives not strictly decreasing {objs}")
+    check(finite and all(feas.values()),
+          f"assoc region: infeasible or non-finite cells {feas}")
+    check(counts["sp1_lambda_sum"] > 0, "assoc region: sp1_lambda_sum "
+                                        "never ran")
+    check(all(n > 0 and n % 3 == 0 for n in solve_launches),
+          f"assoc region: an inner solve ran other than 3 sp1_lambda_sum "
+          f"launches per batched BCD iteration {solve_launches}")
+
+    # outer_iters=0 is the fleet solve of the nearest association
+    r0 = solve(Problem(system=sysb, weights=w,
+                       assoc=AssocConfig(outer_iters=0)), spec)
+    near = nearest_assignment(sysb, cap)
+    direct = solve(Problem(system=sysb.with_assignment(near), weights=w),
+                   spec)
+    same0 = bool(np.array_equal(r0.assignment, near)) \
+        and same_fleet(torch, r0.fleet, direct) and r0.objectives == objs[:1]
+    # the same call over region_mesh() (one shard on one card)
+    short = AssocConfig(outer_iters=ASSOC_MESH_OUTER)
+    t0 = time.perf_counter()
+    plain = solve(Problem(system=sysb, weights=w, assoc=short), spec)
+    t1 = time.perf_counter()
+    meshed = solve(Problem(system=sysb, weights=w, assoc=short,
+                           mesh=region_mesh()), spec)
+    t2 = time.perf_counter()
+    same_mesh = bool(np.array_equal(plain.assignment, meshed.assignment)) \
+        and plain.objectives == meshed.objectives \
+        and same_fleet(torch, plain.fleet, meshed.fleet.fleet)
+    record("assoc_region", check="bit_parity", outer0_is_fleet_solve=same0,
+           mesh_equals_plain=same_mesh, mesh_outer_iters=ASSOC_MESH_OUTER,
+           plain_s=t1 - t0, mesh_s=t2 - t1)
+    check(same0, "assoc region: outer_iters=0 differs from the fleet solve "
+                 "of the nearest association")
+    check(same_mesh, "assoc region: the mesh solve differs from the plain")
+    assoc_card_vs_cpu(torch)
+    return dict(launches=counts)
+
+
+def fl_inputs(torch):
+    """The paper cell and its federated dataset, on the card."""
+    from repro_torch import make_system
+    from repro_torch.configs import flmar_cnn
+    from repro_torch.fl import make_federated_dataset
+
+    sysp = make_system(PAPER_SEED, FL_N, device="cuda", dtype=torch.float32)
+    ds = make_federated_dataset(
+        FL_SEED, n_clients=FL_N, per_client=FL_PER_CLIENT,
+        num_classes=flmar_cnn["num_classes"],
+        base_resolution=flmar_cnn["base_resolution"], device="cuda")
+    return sysp, ds
+
+
+def fl_simulate(torch, sysp, ds):
+    """fl.simulate on the paper cell, counted, its solves' seconds read off
+    their obs spans and the FL run's taken as the rest. Returns (result,
+    record)."""
+    from repro_torch import RoundsConfig, Weights, obs
+    from repro_torch.configs import flmar_cnn
+    from repro_torch.fl import simulate
+
+    rec = obs.MemoryRecorder()
+
+    def run():
+        with obs.recording(rec):
+            return simulate(
+                FL_SEED + 1, sysp, Weights(*FL_WEIGHTS), dataset=ds,
+                dataset_resolutions=flmar_cnn["dataset_resolutions"],
+                global_rounds=FL_ROUNDS, local_iters=FL_LOCAL, lr=FL_LR,
+                dynamics=RoundsConfig(rounds=FL_ROUNDS, **FL_DYNAMICS))
+
+    res, counts, reads, wall = counted(torch, run)
+    solve_s = [e["dur_s"] for e in rec.events
+               if e["name"] == "solve" and e["parent"] == -1]
+    fl_run_s = wall - sum(solve_s)
+    codes = res.rounds.staleness
+    return res, dict(wall_s=wall, solve_s=solve_s, fl_run_s=fl_run_s,
+                     round_s=fl_run_s / FL_ROUNDS, launches=counts,
+                     host_reads=reads,
+                     staleness_codes=dict(zip(*(x.tolist() for x in
+                                                codes.unique(
+                                                    return_counts=True)))))
+
+
+def default_algorithms(fn):
+    """fn() with `fl.local_train`'s deterministic-algorithms scope
+    replaced by a null one: PyTorch's default algorithms, to time the
+    scope and see whether the default ones repeat."""
+    import contextlib
+
+    from repro_torch.fl import client
+
+    saved = client.deterministic_algorithms
+    client.deterministic_algorithms = contextlib.nullcontext
+    try:
+        return fn()
+    finally:
+        client.deterministic_algorithms = saved
+
+
+def scope_cost(torch, ds):
+    """Milliseconds of one `local_train` call (FL_LOCAL steps on client
+    0's frames) at each of FL_SCOPE_RES, with the deterministic scope and
+    without it, alternating, to a synchronize: the median of
+    FL_SCOPE_REPS calls each."""
+    from repro_torch.fl import local_train, render
+    from repro_torch.models.cnn import init_cnn
+
+    params = init_cnn(FL_SEED, num_classes=ds.num_classes, device="cuda")
+    out = {}
+    for r in FL_SCOPE_RES:
+        imgs = render(ds.images[0], r)
+
+        def once():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local_train(params, imgs, ds.labels[0], FL_LR, FL_LOCAL)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        times = dict(deterministic=[], default=[])
+        for _ in range(FL_SCOPE_REPS):
+            times["deterministic"].append(once())
+            times["default"].append(default_algorithms(once))
+        out[r] = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    return out
+
+
+def fp32_precision(torch, tf32_convs):
+    """The float32 precision flags: PyTorch's defaults (TF32 convolutions,
+    full float32 matrix products) with `tf32_convs`, else full float32
+    for both, as the rest of this script runs."""
+    torch.backends.cudnn.allow_tf32 = tf32_convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def same_params(torch, a, b):
+    return all(torch.equal(a[k][kk], b[k][kk]) for k in a for kk in a[k])
+
+
+def params_rel(torch, a, b):
+    return max(float((a[k][kk] - b[k][kk].to(a[k][kk].device)).abs().max()
+                     / b[k][kk].abs().max().clamp_min(1e-300))
+               for k in a for kk in a[k])
+
+
+def fl_card_vs_cpu(torch):
+    """FL_CPU in float64 on the card and on the CPU: parameters to
+    FL_CPU_TOL relative a leaf, equal round accuracies, the ledger to
+    FL_CPU_TOL."""
+    from repro_torch import Weights, make_system
+    from repro_torch.fl import make_federated_dataset, simulate
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        sysp = make_system(PAPER_SEED, FL_CPU["n"], device=device,
+                           dtype=torch.float64)
+        ds = make_federated_dataset(
+            FL_SEED, n_clients=FL_CPU["n"], per_client=FL_CPU["per_client"],
+            base_resolution=FL_CPU["base"], device=device,
+            dtype=torch.float64)
+        t0 = time.perf_counter()
+        runs.append((simulate(
+            FL_SEED + 1, sysp, Weights(*FL_WEIGHTS), dataset=ds,
+            dataset_resolutions=FL_CPU["resolutions"],
+            global_rounds=FL_CPU["rounds"],
+            local_iters=FL_CPU["local_iters"]), time.perf_counter() - t0))
+    (g, card_s), (c, cpu_s) = runs
+    prel = params_rel(torch, g.fl.params, c.fl.params)
+    lrel = max(abs(g.ledger[k] - v) / max(abs(v), 1e-300)
+               for k, v in c.ledger.items())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(g.fl.round_loss, c.fl.round_loss))
+    record("card_vs_cpu", topology="fl_train", dtype="float64",
+           config=dict(FL_CPU), params_max_rel=prel, ledger_max_rel=lrel,
+           round_loss_max_rel=loss_rel,
+           round_accuracy=[g.fl.round_accuracy, c.fl.round_accuracy],
+           card_s=card_s, cpu_s=cpu_s)
+    check(prel <= FL_CPU_TOL and lrel <= FL_CPU_TOL,
+          f"card vs CPU, FL: parameters {prel:.3g}, ledger {lrel:.3g}")
+    check(g.fl.round_accuracy == c.fl.round_accuracy,
+          "card vs CPU, FL: round accuracies differ")
+
+
+def phase_fl_train(torch):
+    """At PyTorch's default float32 precision (TF32 convolutions), what a
+    user of the port gets: (1) fl.simulate on the paper cell at the CNN's
+    published widths, with one FL round profiled; (2) a second run,
+    bit-identical, and a third with PyTorch's default algorithms in place
+    of the deterministic ones, timed and profiled; (3) the cut card vs
+    CPU in float64; (4) launch.flmar.main with examples/fl_mar_train.py's
+    argv, and diff.fit_from_training at its defaults. Then
+    launch.flmar.main again with float32 convolutions in full float32."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import flmar_cnn
+    from repro_torch.diff import fit_from_training
+    from repro_torch.fl import map_resolution_to_dataset, run_federated
+    from repro_torch.launch import flmar
+
+    def flmar_run():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            flm, counts, reads, wall = counted(torch, lambda: flmar.main(
+                FLMAR_ARGV + ["--device", "cuda"]))
+        return flm, dict(wall_s=wall, launches=counts, host_reads=reads,
+                         ledger=flm.ledger,
+                         printed=out.getvalue().splitlines())
+
+    fp32_precision(torch, tf32_convs=True)
+    try:
+        sysp, ds = fl_inputs(torch)
+        res, run = fl_simulate(torch, sysp, ds)
+        led = res.ledger
+        widths = [res.fl.params[f"conv{i}"]["w"].shape[0]
+                  for i in range(len(flmar_cnn["widths"]))]
+        ds_res = map_resolution_to_dataset(
+            sysp, res.rounds.resolutions[0],
+            flmar_cnn["dataset_resolutions"])
+
+        def one_round():
+            return run_federated(FL_SEED, ds, ds_res, global_rounds=1,
+                                 local_iters=FL_LOCAL, lr=FL_LR)
+
+        _, prof = trace_call(torch, one_round)
+        record("fl_train", N=FL_N, per_client=FL_PER_CLIENT,
+               rounds=FL_ROUNDS, local_iters=FL_LOCAL, dtype="float32",
+               tf32_convs=True, widths=widths, dynamics=dict(FL_DYNAMICS),
+               ledger=led, round_accuracy=res.fl.round_accuracy,
+               round_loss=res.fl.round_loss,
+               dataset_resolutions=sorted(set(ds_res.tolist())), **run)
+        record("profile", topology="fl_train_round", N=FL_N,
+               per_client=FL_PER_CLIENT, local_iters=FL_LOCAL,
+               dtype="float32", algorithms="deterministic", **prof)
+        check(widths == list(flmar_cnn["widths"]),
+              f"fl: CNN widths {widths}, the config's {flmar_cnn['widths']}")
+        check(all(math.isfinite(v) for v in led.values()),
+              f"fl: non-finite ledger {led}")
+        check(abs(led["energy_total_J"]
+                  - led["energy_per_round_J"] * FL_ROUNDS)
+              <= 1e-6 * abs(led["energy_total_J"]),
+              "fl: energy_total_J is not energy_per_round_J x rounds")
+        check(led["final_accuracy"] > 1.0 / flmar_cnn["num_classes"],
+              f"fl: final accuracy {led['final_accuracy']} at or below "
+              f"chance")
+        check(run["launches"]["sp1_lambda_sum"] > 0,
+              "fl: sp1_lambda_sum never ran")
+
+        res2, run2 = fl_simulate(torch, sysp, ds)
+        repeat = same_params(torch, res.fl.params, res2.fl.params) \
+            and res.ledger == res2.ledger \
+            and res.fl.round_loss == res2.fl.round_loss
+        record("fl_train", check="repeat", bit_identical=repeat, **run2)
+        check(repeat, "fl: two runs of the same simulation differ")
+
+        res3, run3 = default_algorithms(lambda: fl_simulate(torch, sysp, ds))
+        _, prof3 = default_algorithms(lambda: trace_call(torch, one_round))
+        record("fl_train", check="default_algorithms",
+               bit_identical_to_first=same_params(torch, res.fl.params,
+                                                  res3.fl.params),
+               params_max_rel=params_rel(torch, res3.fl.params,
+                                         res.fl.params), **run3)
+        record("profile", topology="fl_train_round", N=FL_N,
+               per_client=FL_PER_CLIENT, local_iters=FL_LOCAL,
+               dtype="float32", algorithms="default", **prof3)
+        record("fl_train", check="scope_cost", reps=FL_SCOPE_REPS,
+               local_train_ms=scope_cost(torch, ds))
+
+        fl_card_vs_cpu(torch)
+
+        flm, flm_rec = flmar_run()
+        t0 = time.perf_counter()
+        fit = fit_from_training(0, device="cuda")
+        fit_s = time.perf_counter() - t0
+    finally:
+        fp32_precision(torch, tf32_convs=False)
+    record("fl_train", entry="launch.flmar.main", argv=FLMAR_ARGV,
+           tf32_convs=True, **flm_rec)
+    record("fl_train", entry="diff.fit_from_training", wall_s=fit_s,
+           knots=fit.knots, values=fit.values)
+    check(all(math.isfinite(v) for v in flm.ledger.values()),
+          f"fl: launch.flmar.main's ledger is not finite {flm.ledger}")
+    check(all(b > a for a, b in zip(fit.knots, fit.knots[1:]))
+          and all(b >= a for a, b in zip(fit.values, fit.values[1:]))
+          and all(math.isfinite(v) for v in fit.values),
+          f"fl: fit_from_training knots {fit.knots} values {fit.values}")
+
+    flm32, flm32_rec = flmar_run()
+    record("fl_train", entry="launch.flmar.main", argv=FLMAR_ARGV,
+           tf32_convs=False, **flm32_rec,
+           ledger_rel_to_tf32={k: (v - flm.ledger[k])
+                               / max(abs(flm.ledger[k]), 1e-300)
+                               for k, v in flm32.ledger.items()})
+    check(all(math.isfinite(v) for v in flm32.ledger.values()),
+          f"fl: launch.flmar.main's ledger is not finite {flm32.ledger}")
+    return dict(launches=dict(sp1_lambda_sum=run["launches"][
+        "sp1_lambda_sum"] + flm_rec["launches"]["sp1_lambda_sum"]))
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,11 @@ re-allocation, dropout and stale participation, its draws given as a
 `dynamics.replay_mobility`); the region serving stack (`region`: the
 admission -> planning -> dispatch -> completion `RegionPipeline`, its
 synchronous facade `RegionAllocator`, and `Problem.mesh` with
-`region_mesh` and `SolverSpec.lockstep`); telemetry (`obs`: spans and
+`region_mesh` and `SolverSpec.lockstep`); cross-cell user association
+(`Problem.assoc` with an `assoc.AssocConfig`, over a `make_multicell`
+region); FedAvg training of the paper's client CNN at the allocated
+resolutions (`fl`: `fl.simulate`, `python -m repro_torch.launch.flmar`);
+telemetry (`obs`: spans and
 points, the metric registry and its Prometheus / JSONL exporters, SLO
 burn rates, the `MetricsServer` scrape endpoint, torch.profiler
 sessions); implicit gradients of the allocation
@@ -55,6 +59,7 @@ from .region import (AllocationRequest, CellResponse, CloseOnFull,
                      RegionAllocator, RegionPipeline, RegionResult,
                      StageClocks, bucket_size, inactive_system, pad_system,
                      region_mesh)
+from .assoc import AssocConfig, AssocResult, make_multicell, solve_assoc
 from . import obs
 
 __all__ = [
@@ -69,5 +74,6 @@ __all__ = [
     "bucket_size", "inactive_system", "pad_system",
     "AllocationRequest", "CellResponse", "CloseOnFull", "DeadlineSlack",
     "MaxWait", "PendingResponse", "RegionAllocator", "RegionPipeline",
-    "RegionResult", "StageClocks", "region_mesh", "obs",
+    "RegionResult", "StageClocks", "region_mesh",
+    "AssocConfig", "AssocResult", "make_multicell", "solve_assoc", "obs",
 ]

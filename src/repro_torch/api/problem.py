@@ -11,7 +11,8 @@ objective weights and the optional extras; `solve` routes on its topology:
                                       cell or fleet
   * ``mesh`` set (a (C, N) stack)  -> the cell axis split over a
                                       `region.RegionMesh`
-  * ``assoc`` set                  -> not ported yet (NotImplementedError)
+  * ``assoc`` set (a (C, N) stack) -> the association outer loop
+                                      (`assoc.solve_assoc`)
 
 Weights are data: `weights_leaf` lowers them to a (3,) / (C, 3) tensor,
 so every cell can weigh energy / latency / accuracy differently.
@@ -107,8 +108,9 @@ class Problem:
         or an integer seed for one.
     mesh : a `region.RegionMesh` (`region_mesh`): a (C, N) stack's cells
         are split over its devices (free, deadline and rounds solves).
-    assoc : the association topology of `repro.api.Problem`, which a later
-        slice ports; `solve` raises NotImplementedError when it is set.
+    assoc : an `assoc.AssocConfig`: `solve` runs the BCD-over-association
+        outer loop on a cross-cell (C, N) stack (`assoc.make_multicell`),
+        re-solving every cell's resources per association step.
     """
     system: SystemParams
     weights: WeightsLike

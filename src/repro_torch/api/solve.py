@@ -14,11 +14,14 @@ Port of `repro/api/solve.py` for these topologies:
                           and deadline solves, `RoundsResult` for rounds):
                           shard-local exits, or one lockstep batch with
                           `SolverSpec.lockstep`
+    + assoc config     -> the association outer loop over a (C, N)
+                          cross-cell stack (`AssocResult`; its inner
+                          fleet solves take every option above but
+                          rounds and deadline)
 
 Every engine of `SolverSpec` runs on each of them (SP1 "sweep"/"bisect",
 SP2 "direct"/"jong"). The solve runs on the device the system's tensors
-live on (a mesh solve on the mesh's devices). `Problem.assoc` raises
-NotImplementedError naming the ROADMAP item that ports it.
+live on (a mesh solve on the mesh's devices).
 
 When a `repro_torch.obs` recorder is enabled the whole call is wrapped in
 a `solve` span tagged with the routed topology (`_topology_label`); with
@@ -26,6 +29,7 @@ the default no-op recorder this is one predicate check.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -41,12 +45,6 @@ from ..dynamics.engine import (check_simulation_init, round_draws,
                                rounds_result, run_engine)
 from .problem import Problem, weights_leaf
 from .spec import SolverSpec, warn_tol_floor
-
-# Problem fields of topologies not ported yet -> the ROADMAP item porting them
-_LATER = {
-    "assoc": "Queue 1 item 10 (association)",
-}
-
 
 def _apply_dtype(system: SystemParams, init: Optional[Allocation],
                  dtype: Optional[str]):
@@ -89,16 +87,13 @@ def solve(problem: Problem, spec: Optional[SolverSpec] = None):
 
 def _solve_routed(problem: Problem, spec: Optional[SolverSpec]):
     spec = SolverSpec() if spec is None else spec
-    for field, item in _LATER.items():
-        if getattr(problem, field) is not None:
-            raise NotImplementedError(
-                f"repro_torch.solve: Problem.{field} is not ported yet; see "
-                f"ROADMAP.md {item}")
     if spec.lockstep and problem.mesh is None:
         # lockstep selects the execution mode of a mesh solve; on a
         # meshless problem it would silently do nothing
         raise ValueError("solve: SolverSpec.lockstep requires Problem.mesh")
     cells = problem.cells   # also validates system.gain is 1-D or 2-D
+    if problem.assoc is not None:
+        return _solve_assoc(problem, spec, cells)
     if problem.mesh is not None and cells is None:
         raise ValueError("solve: mesh requires a stacked (C, N) system "
                          "(stack_systems / make_fleet)")
@@ -147,6 +142,24 @@ def _solve_region(mesh, spec: SolverSpec, fn, args, cells: int, cols):
     return RegionResult(fleet=fleet,
                         _stats_packed=_pack_stats(fleet, n_shards=mesh.size),
                         _n_cells=cells, _mesh_devices=mesh.size)
+
+
+def _solve_assoc(problem: Problem, spec: SolverSpec, cells):
+    """The association outer loop (`assoc.loop.solve_assoc`) on the
+    problem's system in the spec's dtype; the reference's errors."""
+    from ..assoc.loop import solve_assoc
+
+    if problem.rounds is not None or problem.deadline is not None:
+        raise ValueError(
+            "solve: assoc is exclusive with rounds/deadline (the "
+            "association loop owns the outer iteration)")
+    if cells is None:
+        raise ValueError(
+            "solve: assoc requires a stacked (C, N) cross-cell system "
+            "(assoc.make_multicell)")
+    sysp, init = _apply_dtype(problem.system, problem.init, spec.dtype)
+    return solve_assoc(dataclasses.replace(problem, system=sysp, init=init),
+                       spec)
 
 
 def _solve_rounds(problem: Problem, spec: SolverSpec, sysp: SystemParams,

@@ -151,6 +151,25 @@ class SystemParams:
         act = None if self.active is None else self.active[c]
         return SystemParams(**take, resolutions=self.resolutions, active=act)
 
+    def with_assignment(self, assign) -> "SystemParams":
+        """Cross-cell active views under a device -> cell assignment.
+
+        For a stacked (C, N) system whose row c holds every device's gain
+        to cell c, an association is an (N,) int array or tensor
+        (`assign[n]` = serving cell, -1 = unserved). The result carries
+        ``active[c, n] = (assign[n] == c) & base_active[c, n]``, so each
+        cell's lane solves exactly its member devices at the one (C, N)
+        shape."""
+        if self.gain.ndim != 2:
+            raise ValueError(
+                "SystemParams.with_assignment: system is not stacked (C, N)")
+        C = self.gain.shape[0]
+        assign = torch.as_tensor(assign, device=self.device)
+        mask = assign[None, :] == torch.arange(C, device=self.device)[:, None]
+        if self.active is not None:
+            mask = mask & self.active
+        return self.replace(active=mask)
+
     def to(self, device=None, dtype: Optional[torch.dtype] = None
            ) -> "SystemParams":
         """Move to `device` and cast floating tensors to `dtype` (the

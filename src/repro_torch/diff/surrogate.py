@@ -22,14 +22,13 @@ The fitted model carries its `menu` (the solver-unit resolutions it was
 measured at); `problem_with_surrogate` installs model AND menu on a
 `Problem` so `round_resolution` / `map_resolution_to_dataset` snap onto
 the fitted operating points instead of the Fig. 7 grid
-(`core.accuracy.system_with_menu`). `fit_from_training` runs FedAvg
-training, which this package does not have yet (ROADMAP Queue 1 item 11):
-it raises NotImplementedError.
+(`core.accuracy.system_with_menu`). `fit_from_training` measures the
+points by FedAvg training runs (`fl.server.run_federated`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +37,8 @@ from ..core.accuracy import FIG7_RESOLUTIONS, system_with_menu
 
 Tensor = torch.Tensor
 
-__all__ = ["SurrogateAccuracy", "fit_from_training", "fit_surrogate",
-           "problem_with_surrogate"]
+__all__ = ["FitDraws", "SurrogateAccuracy", "fit_from_training",
+           "fit_surrogate", "problem_with_surrogate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,16 +138,65 @@ def fit_surrogate(resolutions: Sequence[float],
                              menu=tuple(float(s) for s in menu))
 
 
-def fit_from_training(key, menu: Sequence[float] = FIG7_RESOLUTIONS,
+@dataclasses.dataclass
+class FitDraws:
+    """The random inputs of `fit_from_training`: the dataset's `FLDraws`
+    and one `fl.RunDraws` (initial parameters, eval set) per dataset
+    resolution, in the order of `dataset_resolutions`."""
+    dataset: Any
+    runs: Sequence[Any]
+
+
+def fit_from_training(key=0, menu: Sequence[float] = FIG7_RESOLUTIONS,
                       dataset_resolutions: Sequence[int] = (8, 16, 24, 32),
-                      **kw) -> SurrogateAccuracy:
-    """Fit the surrogate from realized FL training curves: one FedAvg run
-    per dataset resolution, its final eval accuracy the operating point's
-    measurement. It needs the FL stack, which is not ported yet."""
-    raise NotImplementedError(
-        "repro_torch.diff.fit_from_training needs the FL training stack, "
-        "which is not ported yet; see ROADMAP.md Queue 1 item 11 (FL). "
-        "Fit measured points with fit_surrogate instead.")
+                      n_clients: int = 6, per_client: int = 96,
+                      num_classes: int = 4, global_rounds: int = 3,
+                      local_iters: int = 2, lr: float = 0.05,
+                      eval_n: int = 192, split: str = "iid", *,
+                      device=None) -> SurrogateAccuracy:
+    """Fit the surrogate from realized `fl` training curves.
+
+    One FedAvg run per dataset resolution (every client rendered at that
+    resolution, evaluated at it too); the final round's eval accuracy
+    becomes that operating point's measurement. `menu` gives the solver-
+    unit resolution of each dataset grid point (rank for rank, the same
+    correspondence `map_resolution_to_dataset` uses), so the fitted model
+    plugs straight into the allocator via `problem_with_surrogate`.
+
+    key: a `FitDraws` (which fix the dataset's sizes, split, device and
+        dtype), or a torch.Generator / integer seed that draws the dataset
+        at the given sizes on `device` (CUDA by default) in float32, then
+        each run's parameters and eval set in turn.
+    """
+    from ..core.channel import _generator
+    from ..fl.data import dataset_draws, make_federated_dataset
+    from ..fl.server import run_draws, run_federated
+
+    if len(menu) != len(dataset_resolutions):
+        raise ValueError(
+            f"fit_from_training: menu ({len(menu)}) and "
+            f"dataset_resolutions ({len(dataset_resolutions)}) must "
+            f"correspond rank for rank")
+    if isinstance(key, FitDraws):
+        ds = make_federated_dataset(key.dataset)
+        runs = key.runs
+    else:
+        gen = _generator(key)
+        ds = make_federated_dataset(dataset_draws(
+            gen, n_clients, per_client, num_classes,
+            int(max(dataset_resolutions)), split, device=device))
+        runs = [run_draws(gen, ds, eval_n) for _ in dataset_resolutions]
+    if len(runs) != len(dataset_resolutions):
+        raise ValueError(
+            f"fit_from_training: {len(runs)} run draws for "
+            f"{len(dataset_resolutions)} dataset resolutions")
+    accs = []
+    for draws, r in zip(runs, dataset_resolutions):
+        run = run_federated(
+            draws, ds, [int(r)] * ds.n_clients, global_rounds=global_rounds,
+            local_iters=local_iters, lr=lr, eval_resolution=int(r))
+        accs.append(run.round_accuracy[-1])
+    return fit_surrogate(menu, accs, menu=menu)
 
 
 def problem_with_surrogate(problem, acc: SurrogateAccuracy):

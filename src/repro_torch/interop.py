@@ -7,7 +7,9 @@ on the `repro` side); this module imports nothing of `repro`. A stacked
 model's parameters, stacked over layer periods there, are unstacked into
 one module per period. The round engine and the mobility traces take their
 draws as inputs, so a caller can feed them the reference's `jax.random`
-draws (`round_draws_from_numpy`, `mobility_draws_from_numpy`).
+draws (`round_draws_from_numpy`, `mobility_draws_from_numpy`), as do the
+FL datasets (`fl_draws_from_numpy`); `cnn_params_from_numpy` carries the
+client CNN's parameters over.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from .core.types import (ALLOC_FIELDS, SYS_ARRAYS, SYS_SCALARS, Allocation,
                          SystemParams, resolve_device)
 from .dynamics.engine import RoundDraws
 from .dynamics.mobility import MobilityDraws
+from .fl.data import FLDraws, SampleDraws
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -82,6 +85,45 @@ def mobility_draws_from_numpy(leaves: Mapping[str, np.ndarray], device=None,
                             else _tensor(leaves[k], dtype, dev)
                             for k in ("pos0", "v0", "step_xy", "wp0",
                                       "step_v", "shadow0", "shadow_z")})
+
+
+def fl_draws_from_numpy(labels: np.ndarray, shift: np.ndarray,
+                        smooth: np.ndarray, pix: np.ndarray,
+                        templates: Optional[Sequence[np.ndarray]] = None,
+                        frac: Optional[np.ndarray] = None, device=None,
+                        dtype: Optional[torch.dtype] = None) -> FLDraws:
+    """An `fl.data.FLDraws` from numpy arrays: the labels, one `_sample`
+    call's shift / smooth / pix draws, and for a federated dataset the
+    per-scale template normals and the Dirichlet fractions. `dtype` None
+    keeps each float array's own type."""
+    dev = resolve_device(device)
+
+    def ints(x):
+        return torch.as_tensor(np.array(x, dtype=np.int64)).to(dev)
+
+    return FLDraws(
+        labels=ints(labels),
+        sample=SampleDraws(shift=ints(shift), smooth=_tensor(smooth, dtype,
+                                                             dev),
+                           pix=_tensor(pix, dtype, dev)),
+        templates=None if templates is None
+        else tuple(_tensor(t, dtype, dev) for t in templates),
+        frac=None if frac is None else _tensor(frac, dtype, dev))
+
+
+def cnn_params_from_numpy(tree: Mapping, device=None,
+                          dtype: Optional[torch.dtype] = None):
+    """The client CNN's parameters (`models.cnn.Params`) from the
+    reference's nested dict of numpy arrays: each convolution's HWIO
+    kernel becomes OIHW, the head's (in, classes) matrix (classes, in)."""
+    dev = resolve_device(device)
+    out = {}
+    for layer, leaves in tree.items():
+        w = np.asarray(leaves["w"])
+        w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
+        out[layer] = dict(w=_tensor(w, dtype, dev).contiguous(),
+                          b=_tensor(leaves["b"], dtype, dev))
+    return out
 
 
 def _leaf(tree: Mapping, path: Sequence[str]) -> np.ndarray:

@@ -1,1 +1,2 @@
-"""Entry points of the port's LM stack: `python -m repro_torch.launch.serve`."""
+"""Entry points of the port: `python -m repro_torch.launch.serve` (LM
+serving) and `python -m repro_torch.launch.flmar` (the FL-MAR loop)."""

@@ -1,1 +1,2 @@
-"""The LM stack of the port (serving): layers, GQA attention, RWKV6, the model."""
+"""The port's models: the FL-MAR client CNN (`cnn`) and the LM stack
+(serving): layers, GQA attention, RWKV6, Mamba, MoE, the model."""

@@ -834,3 +834,58 @@ def test_default_region_mesh_holds_every_card(cuda):
                                getattr(base.allocation, f).cpu()), f
         assert torch.equal(reg.iters.cpu(), base.iters.cpu())
         assert reg.stats["mesh_devices"] == mesh.size
+
+
+@pytest.mark.cuda
+def test_solve_assoc_on_the_card_outer0_is_the_fleet_solve(cuda):
+    """Association on a small region on the card: outer_iters=0 is the
+    fleet solve of the nearest association, bit for bit, and a full run
+    keeps the partition and a strictly decreasing objective."""
+    import repro_torch as rt
+    from repro_torch.assoc import (AssocConfig, make_multicell,
+                                   nearest_assignment)
+
+    sysb = make_multicell(5, 4, 256, device=cuda, dtype=torch.float32,
+                          bandwidth_total=[20e6 * 64 / 50 * (1 + c)
+                                           for c in range(4)])
+    w, spec = rt.Weights(0.5, 0.5, 5.0), rt.SolverSpec(max_iters=6, tol=1e-4)
+    r0 = rt.solve(rt.Problem(system=sysb, weights=w,
+                             assoc=AssocConfig(outer_iters=0)), spec)
+    near = nearest_assignment(sysb, np.full(4, 256))
+    direct = rt.solve(rt.Problem(system=sysb.with_assignment(near),
+                                 weights=w), spec)
+    assert np.array_equal(r0.assignment, near)
+    for f in ("bandwidth", "power", "freq", "resolution", "T"):
+        assert torch.equal(getattr(r0.fleet.allocation, f),
+                           getattr(direct.allocation, f)), f
+    sp1_sweep.sp1_lambda_sum.launches = 0
+    res = rt.solve(rt.Problem(system=sysb, weights=w,
+                              assoc=AssocConfig(outer_iters=4)), spec)
+    assert sp1_sweep.sp1_lambda_sum.launches > 0
+    assert (res.assignment >= 0).all()
+    assert all(b < a for a, b in zip(res.objectives, res.objectives[1:]))
+
+
+@pytest.mark.cuda
+def test_local_train_twice_on_the_card_is_bit_identical(cuda):
+    """Two local_train runs on the same inputs give the same bits at
+    every dataset resolution of the paper's client model (deterministic
+    algorithms inside fl.client), and the caller's mode comes back."""
+    from repro_torch.fl import local_train, make_federated_dataset, render
+    from repro_torch.models.cnn import init_cnn
+
+    ds = make_federated_dataset(0, n_clients=2, per_client=128,
+                                num_classes=8, base_resolution=32,
+                                device=cuda)
+    params = init_cnn(1, num_classes=8, device=cuda)
+    assert not torch.are_deterministic_algorithms_enabled()
+    for res in (8, 16, 24, 32):
+        imgs = render(ds.images[0], res)
+        a, la = local_train(params, imgs, ds.labels[0], 0.05, 5)
+        b, lb = local_train(params, imgs, ds.labels[0], 0.05, 5)
+        assert torch.equal(la, lb) and bool(torch.isfinite(la)), res
+        for layer in a:
+            for leaf in a[layer]:
+                assert torch.equal(a[layer][leaf], b[layer][leaf]), \
+                    (res, layer, leaf)
+    assert not torch.are_deterministic_algorithms_enabled()

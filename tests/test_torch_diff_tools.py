@@ -75,8 +75,10 @@ def test_fit_surrogate_exact_and_validates():
         SurrogateAccuracy(knots=(1.0,), values=(0.5,), menu=(100.0,))
     with pytest.raises(ValueError):
         fit_surrogate([1.0, 1.0], [0.1, 0.2])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        fit_from_training(0)
+    # fit_from_training is ported (tests/test_torch_fl.py runs it); its
+    # menu must match the dataset grid rank for rank, as the reference's
+    with pytest.raises(ValueError, match="rank for rank"):
+        fit_from_training(0, menu=(160.0, 320.0), device="cpu")
 
 
 def test_problem_with_surrogate_solves_like_repro():

@@ -170,8 +170,8 @@ def test_keep_history_false_keeps_the_objective(paper_cell):
     assert lean.history == [] and lean.objective == full.objective
 
 
-# rounds and the mesh are ported: a mesh over one cell raises the
-# reference's ValueError; assoc still waits for ROADMAP item 10
+# rounds, the mesh and assoc are ported: a mesh or an association over
+# one cell raises the reference's ValueError
 @pytest.mark.parametrize("extra", [
     dict(rounds=rt.RoundsConfig(rounds=1), key=0, mesh=object()),
     dict(mesh=object()), dict(assoc=object())])
@@ -180,8 +180,7 @@ def test_unported_topologies_raise(paper_cell, extra):
     problem = rt.Problem(system=st, weights=rt.Weights(0.5, 0.5, 1.0),
                          **extra)
     if "assoc" in extra:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 10"):
+        with pytest.raises(ValueError, match="assoc requires a stacked"):
             rt.solve(problem, rt.SolverSpec())
     else:
         with pytest.raises(ValueError, match="mesh requires a stacked"):
