@@ -20,8 +20,9 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      cell, in float32 and float64: each cell's sums against the kernel
      over its non-zero prefix alone, the all-zero cell's exactly 0.0; records which attention body
      (wgmma, mma.sync or SIMT) each case takes, counted per body, and
-     checks that the served prefill shapes, also as the model's transposed
-     views, take the wgmma body;
+     checks that every served attention, also in the model's layout,
+     takes the body `flash_attention.body` picks: wgmma where hd == vd,
+     mma.sync for MLA's q/k 96 and v 64;
   3. drives the main paths through the port's entry points at full width,
      each with every kernel's launch count set to 0 just before and read
      just after:
@@ -64,16 +65,26 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          cells; every response finite and feasible, 3 sp1_lambda_sum
          launches per batched BCD iteration of every batch;
        - LM serving through `repro_torch.launch.serve.main` for
-         internlm2-20b (dense GQA) and rwkv6-1.6b (RWKV6) at full width and
-         depth, and jamba-1.5-large-398b (hybrid Mamba + MoE) at full width
-         cut to its first 5 layers (mamba, mamba_moe, mamba, mamba_moe,
-         attn), bf16, batch 4, 2048-token prompts, 32 greedy tokens: one
+         internlm2-20b (dense GQA; again with the int8 KV cache),
+         rwkv6-1.6b (RWKV6), minicpm3-4b (MLA) and whisper-large-v3
+         (encoder-decoder, zero frames in the prefill and every decode
+         step, as the reference serves it) at full width and depth,
+         jamba-1.5-large-398b (hybrid Mamba + MoE) at full width cut to
+         its first 5 layers (mamba, mamba_moe, mamba, mamba_moe, attn)
+         and llava-next-34b at full width cut to its first 12 layers, bf16,
+         batch 4, 2048-token prompts (whisper 416), 32 greedy tokens: one
          flash_attention / rwkv6_scan / mamba_scan launch per attention /
-         RWKV / Mamba layer in the prefill, none in decode; two runs give
-         the same tokens, and a prefill over the prompt plus the first
-         token matches the first decode step (the cache hand-over); every
-         served flash_attention launch on the wgmma body, both rwkv6
-         passes once per rwkv6_scan call;
+         RWKV / Mamba layer in the prefill, one per encoder layer and two
+         per cross-attention layer, none in decode except whisper's 64 a
+         step (its encoder and cross-attention); two runs give the same
+         tokens, and a prefill over the prompt plus the first token
+         matches the first decode step (the cache hand-over); every served
+         flash_attention launch on the body `flash_attention.body` picks
+         for its shape, both rwkv6 passes once per rwkv6_scan call;
+         whisper also on the admission path (`prepare_cross_cache` on
+         frames from the seed, then decode without frames) against the
+         default path on the same frames and tokens, and the llava cut
+         with 2880 patches from the seed before its prompt;
        - cross-cell association (`Problem.assoc`), float32,
          SolverSpec(max_iters=6, tol=1e-4), weights (0.5, 0.5, 5.0), 8
          outer steps: 16 bs_grid cells over 1 km^2 and 16,384 devices
@@ -103,8 +114,11 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      SP1 "bisect", with SP2 "jong" (cut to 3 BCD x 5 Algorithm-1
      iterations) and with the log accuracy model, and 4 fleet cells under
      per-cell deadlines; and the reduced LMs in float32 (prefill and four
-     decode steps): internlm2-20b, rwkv6-1.6b, jamba-1.5-large-398b and
-     mixtral-8x7b; and in float64 the rounds engine on 4 cells x 64
+     decode steps): internlm2-20b, rwkv6-1.6b, jamba-1.5-large-398b,
+     mixtral-8x7b, minicpm3-4b, whisper-large-v3 on both cross paths,
+     llava-next-34b with patches and internlm2-20b with the int8 cache
+     (its differing codes counted, each step replayed on the CPU from
+     the card's cache); and in float64 the rounds engine on 4 cells x 64
      devices from one set of draws (locating the SP2 search with the
      largest eval gap and replaying it on the CPU with the card's inputs
      and with the card's exp / log1p), solve_and_grad on those 4 cells
@@ -118,8 +132,8 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      kernel per launch, by CUDA events over back-to-back wrapper calls
      (`ms`, the host included) and by torch.profiler's device time of its
      own kernels (`device_ms`), beside its bound, its plain version and,
-     for attention, scaled_dot_product_attention (timed only), at both
-     served attention shapes; rwkv6_scan also per pass; sp1_lambda_sum
+     for attention, scaled_dot_product_attention (timed only), at every
+     served attention shape; rwkv6_scan also per pass; sp1_lambda_sum
      also in float64 and with the SASS instructions of its candidate loop
      (cuobjdump), one (m, n) pair a trip;
      waterfill_gprime with the Halley steps its early exit takes on the
@@ -274,22 +288,44 @@ FLMAR_ARGV = ["--devices", "8", "--rounds", "25", "--rho", "40",
 # reference's defaults are 20 x 30) to stay inside the run's time limit.
 JONG_SPEC = dict(max_iters=3, sp2_method="jong", sp2_iters=5)
 
-# The LM serving path: internlm2-20b and rwkv6-1.6b at full width and
-# depth, jamba-1.5-large-398b at full width cut to its first 5 of 72 layers
+# The LM serving path, bf16, batch 4, random prompts, 32 greedy tokens,
+# weights from a seed: internlm2-20b, rwkv6-1.6b, minicpm3-4b (MLA) and
+# whisper-large-v3 (encoder-decoder: 32 encoder layers over 1500 frames)
+# at full width and depth; internlm2-20b again with the int8 KV cache;
+# jamba-1.5-large-398b at full width cut to its first 5 of 72 layers
 # (every layer kind of the model; 23.5 B parameters, 47 GB in bf16, where
-# one 8-layer period would not fit the card), bf16, batch 4, 2048-token
-# random prompts, 32 greedy tokens, weights from a seed.
+# one 8-layer period would not fit the card); llava-next-34b at full width
+# cut to its first 12 of 60 layers (7.15 B of its 33.9 B parameters, 14.3
+# GB in bf16: the whole model's 67.9 GB would not fit beside a 4 x
+# 4928-token prefill with patches, whose float32 logits alone take 5.05
+# GB).
 LM_DENSE, LM_RWKV, LM_HYBRID = "internlm2-20b", "rwkv6-1.6b", \
     "jamba-1.5-large-398b"
+LM_MLA, LM_AUDIO, LM_VLM = "minicpm3-4b", "whisper-large-v3", \
+    "llava-next-34b"
+LM_INT8 = "internlm2-20b int8"      # LM_DENSE with kv_cache_int8
 LM_HYBRID_LAYERS = 5
+LM_VLM_LAYERS = 12
 LM_MOE = "mixtral-8x7b"     # card vs CPU at the reduced size only
 LM_BATCH, LM_PROMPT, LM_GEN, LM_SEED = 4, 2048, 32, 0
+# whisper's prompt: prompt + gen = 448, the published model's decoder
+# context (max_target_positions)
+LM_AUDIO_PROMPT = 416
+# request inputs drawn from the seed: encoder frames and projected patches,
+# scaled as the CPU tests scale them
+LM_FRAME_SCALE, LM_PATCH_SCALE = 0.1, 0.02
 # Last-position logits of a prefill over prompt + first token against the
 # first decode step's, relative to the largest logit: bf16 rounds the two
 # paths differently (the prefill's flash kernel and decode's plain attention
 # round scores and probs at different points; the rwkv token shift is cached
 # in bf16).
 LM_HANDOVER_TOL = 5e-2
+# minicpm3-4b (MLA; 62 layers at d_model 2560) carries bf16's rounding of
+# the two paths further: its bf16 hand-over is held to 1e-1, and the same
+# hand-over in float32 at full width and depth, where the two paths agree
+# to a few float32 ulps if the latent cache hands over, to 1e-4.
+LM_HANDOVER_TOL_MLA = 1e-1
+LM_HANDOVER_TOL_F32 = 1e-4
 # card vs CPU on the reduced configs in float32 (TF32 off): logits to 1e-4
 LM_CARD_CPU_TOL = 1e-4
 # flash kernel vs plain, per element: |kernel - plain| <= tol |plain|
@@ -2300,32 +2336,37 @@ def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
 
 
 def flash_time(torch):
-    """flash_attention at each served prefill shape (bf16, causal):
-    internlm2-20b's (4,48,8,2048,128), whose numbers go into the `kernels`
-    line (48 of its 49 launches), and jamba's (4,64,8,2048,128), each in
-    its own record. Operations: the causal (s, t) pairs this mask keeps,
-    S (S + 1) / 2 per (b, h), each a hd-long dot and a vd-long update (2
-    flops per MAC; the exponentials are left out), at the bf16 tensor-core
-    rate. library_ms is one scaled_dot_product_attention call on the same
-    tensors, timed here only: the port never calls it."""
+    """flash_attention at each served attention of flash_main_cases(), bf16,
+    contiguous (B, heads, S, hd) inputs, each in its own record; internlm2-20b's (4,48,8,2048,128) numbers go
+    into the `kernels` line. Operations: the (s, t) pairs the mask keeps
+    (S (S + 1) / 2 per (b, h) causal, S T otherwise), each a hd-long dot
+    and a vd-long update (2 flops per MAC; the exponentials are left out),
+    at the bf16 tensor-core rate. library_ms is one
+    scaled_dot_product_attention call on the same tensors, timed here only:
+    the port never calls it. The plain version runs one batch row at a time
+    where its score matrix would pass 10 GB (`plain_attention`)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import flash_attention as fa
 
     times = {}
-    for arch, (B, H, KV, S, T, hd, vd, _, _) in flash_main_cases().items():
+    for name, (B, H, KV, S, T, hd, vd, causal, _) in \
+            flash_main_cases().items():
         q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, torch.bfloat16)
         moved = sum(x.numel() * x.element_size() for x in (q, k, v)) \
             + B * H * S * vd * q.element_size()
-        ops = B * H * (S * (S + 1) // 2) * 2 * (hd + vd)
-        times[arch] = lm_kernel_time(
+        pairs = S * (S + 1) // 2 if causal else S * T
+        ops = B * H * pairs * 2 * (hd + vd)
+        times[name] = lm_kernel_time(
             torch, "flash_attention", fa.flash_attention,
-            lambda: fa.flash_attention(q, k, v, causal=True),
-            lambda: fa.flash_attention_ref(q, k, v, causal=True),
-            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-            moved, ops, "bfloat16", 20, 3, arch=arch, body=fa.body(q, k, v),
-            shape=[B, H, KV, S, T, hd, vd])
+            lambda: fa.flash_attention(q, k, v, causal=causal),
+            lambda: plain_attention(torch, fa, q, k, v, causal=causal),
+            lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+            moved, ops, "bfloat16", 20, 3, arch=name, body=fa.body(q, k, v),
+            shape=[B, H, KV, S, T, hd, vd], causal=causal,
+            plain_by_rows=B * H * S * T * 4 > 1e10)
         del q, k, v
+        torch.cuda.empty_cache()
     return times[LM_DENSE]
 
 
@@ -2885,24 +2926,53 @@ def phase_fl_train(torch):
 # ---------------------------------------------------------------------------
 
 def flash_main_cases():
-    """The attention prefill of every served configuration that has
-    attention layers, at full width: {arch: (B, H, KV, S, T, hd, vd,
-    causal, window)}, from the configs themselves."""
+    """The attention of every served configuration, at full width and
+    the served lengths: {name: (B, H, KV, S, T, hd, vd, causal, window)},
+    from the configs themselves. The GQA prefills (internlm2-20b, the jamba
+    cut and llava-next-34b on tokens; llava with its 2880 patches before
+    the prompt), MLA's (q/k width qk_nope + qk_rope = 96, v width 64) and
+    whisper's: the encoder over 1500 frames and the cross-attention over
+    them, non-causal, and the decoder's causal self-attention, at the
+    prefill and at a decode step (S = 1)."""
     from repro_torch.configs import get_config
 
+    B, P = LM_BATCH, LM_PROMPT
     cases = {}
-    for arch in (LM_DENSE, LM_HYBRID):
+    for arch in (LM_DENSE, LM_HYBRID, LM_VLM):
         cfg = get_config(arch)
-        vd = cfg.v_head_dim or cfg.head_dim
-        cases[arch] = (LM_BATCH, cfg.n_heads, cfg.kv_heads, LM_PROMPT,
-                       LM_PROMPT, cfg.head_dim, vd, True, cfg.sliding_window)
+        cases[arch] = (B, cfg.n_heads, cfg.kv_heads, P, P, cfg.head_dim,
+                       cfg.head_dim, True, cfg.sliding_window)
+    m = get_config(LM_MLA)
+    cases[LM_MLA] = (B, m.n_heads, m.n_heads, P, P,
+                     m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim, True, None)
+    w = get_config(LM_AUDIO)
+    H, hd, E, Pa = w.n_heads, w.head_dim, w.encoder_ctx, LM_AUDIO_PROMPT
+    cases[f"{LM_AUDIO} encoder"] = (B, H, H, E, E, hd, hd, False, None)
+    cases[f"{LM_AUDIO} self"] = (B, H, w.kv_heads, Pa, Pa, hd, hd, True,
+                                 None)
+    cases[f"{LM_AUDIO} cross"] = (B, H, H, Pa, E, hd, hd, False, None)
+    cases[f"{LM_AUDIO} cross decode"] = (B, H, H, 1, E, hd, hd, False, None)
+    v = get_config(LM_VLM)
+    n = v.n_patches + P
+    cases[f"{LM_VLM} patches"] = (B, v.n_heads, v.kv_heads, n, n, v.head_dim,
+                                  v.head_dim, True, None)
     return cases
+
+
+def flash_v_offset(hd, vd):
+    """Where the model's v starts in its rows: MLA slices v (width vd) off
+    the decompressed (k_nope | v) rows, k_nope = hd - qk_rope_dim."""
+    from repro_torch.configs import get_config
+
+    m = get_config(LM_MLA)
+    return m.qk_nope_dim if (hd, vd) == (m.qk_nope_dim + m.qk_rope_dim,
+                                         m.v_head_dim) else 0
 
 
 def flash_cases():
     """(B, H, KV, S, T, hd, vd, causal, window): tests/test_kernels.py's
     shapes (MHA, GQA 2:1, MQA, window 128, non-causal T != S), ragged ones,
-    and the served prefills of flash_main_cases() (last, on the main
+    and the served attentions of flash_main_cases() (last, on the main
     paths)."""
     return [(1, 2, 2, 128, 128, 64, 64, True, None),
             (2, 4, 2, 256, 256, 64, 64, True, None),
@@ -2912,6 +2982,46 @@ def flash_cases():
             (2, 4, 2, 77, 77, 32, 32, True, None),
             (1, 3, 1, 70, 130, 96, 64, False, None),
             *flash_main_cases().values()]
+
+
+def model_layout(torch, q, k, v):
+    """q, k, v as the model hands them to the kernel: (B, S, heads, hd)
+    transposed to (B, heads, S, hd), and MLA's v a column slice of the
+    decompressed (k_nope | v) rows."""
+    qt, kt = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k))
+    off = flash_v_offset(q.shape[-1], v.shape[-1])
+    rows = torch.cat([torch.zeros_like(v[..., :1]).expand(*v.shape[:3], off),
+                      v], -1)
+    vt = rows.transpose(1, 2).contiguous().transpose(1, 2)[..., off:]
+    return qt, kt, vt
+
+
+def served_bodies(torch):
+    """The body `flash_attention.body` picks for each served attention in
+    bf16, asked of empty tensors in the model's layout (one batch row: the
+    strides' alignment does not depend on B)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for name, (_, H, KV, S, T, hd, vd, _, _) in flash_main_cases().items():
+        def empty(heads, n, d):
+            return torch.empty((1, heads, n, d), dtype=torch.bfloat16,
+                               device="cuda")
+        out[name] = fa.body(*model_layout(torch, empty(H, S, hd),
+                                          empty(KV, T, hd), empty(KV, T, vd)))
+    return out
+
+
+def plain_attention(torch, fa, q, k, v, **kw):
+    """The plain version one batch row at a time where the whole (B, H, S,
+    T) float32 score matrix would pass 10 GB (llava's 2880 patches + 2048
+    tokens: 21.8 GB): the same function on each row's inputs."""
+    B, H, S, T = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+    if B * H * S * T * 4 <= 1e10:
+        return fa.flash_attention_ref(q, k, v, **kw)
+    return torch.cat([fa.flash_attention_ref(q[b:b + 1], k[b:b + 1],
+                                             v[b:b + 1], **kw)
+                      for b in range(B)])
 
 
 def flash_inputs(torch, B, H, KV, S, T, hd, vd, dtype, seed=0):
@@ -2946,9 +3056,10 @@ def flash_spread(torch, q, k, v, causal, window):
 
 def phase_flash_kernel(torch):
     """flash_attention against its plain version on the card, each case on
-    the body `flash_attention.body` picks (counted per body); the served
-    prefills must take the wgmma body, also as the model's (B, S, H, hd)
-    transposed views, which must give the same bits."""
+    the body `flash_attention.body` picks (counted per body); each served
+    attention must take the same body in the model's layout (`model_layout`)
+    and give the same bits there: wgmma where hd == vd, mma.sync for
+    MLA's 96 / 64."""
     from repro_torch.kernels import flash_attention as fa
 
     rows, main_err = [], 0.0
@@ -2964,7 +3075,7 @@ def phase_flash_kernel(torch):
             before = dict(fa.flash_attention.launches_by_body)
             out = fa.flash_attention(q, k, v, **kw)
             again = fa.flash_attention(q, k, v, **kw)
-            plain = fa.flash_attention_ref(q, k, v, **kw)
+            plain = plain_attention(torch, fa, q, k, v, **kw)
             torch.cuda.synchronize()
             ran = {b: n - before[b]
                    for b, n in fa.flash_attention.launches_by_body.items()}
@@ -2988,18 +3099,17 @@ def phase_flash_kernel(torch):
             served = cases[i] in main and dtype == torch.bfloat16
             if served:
                 main_err = max(main_err, float(err.max()))
-                # the model's layout: (B, S, heads, hd) transposed
-                qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
-                              for x in (q, k, v))
+                qt, kt, vt = model_layout(torch, q, k, v)
                 view_body = fa.body(qt, kt, vt)
                 rows[-1].update(model_layout_body=view_body,
                                 model_layout_same=torch.equal(
                                     fa.flash_attention(qt, kt, vt, **kw),
                                     out))
                 del qt, kt, vt
-                check(which == view_body == "wgmma",
+                want = "wgmma" if hd == vd else "mma"
+                check(which == view_body == want,
                       f"flash_attention: served shape on the {which} body "
-                      f"(model layout {view_body}), not wgmma ({where})")
+                      f"(model layout {view_body}), not {want} ({where})")
                 check(rows[-1]["model_layout_same"],
                       f"flash_attention: model layout differs ({where})")
             check(ran == {b: 2 * (b == which) for b in ran},
@@ -3166,33 +3276,131 @@ def phase_mamba_kernel(torch):
                 launches=None, max_abs_err=main_err)
 
 
-def lm_config(arch):
-    """The served configuration: jamba cut to its first LM_HYBRID_LAYERS
-    layers at full width, the others whole."""
+def lm_config(label):
+    """The served configuration of `label`: jamba cut to its first
+    LM_HYBRID_LAYERS layers and llava to its first LM_VLM_LAYERS, both at
+    full width; LM_INT8 internlm2-20b with the int8 KV cache; the others
+    whole."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch)
-    if arch == LM_HYBRID:
+    if label == LM_INT8:
+        return get_config(LM_DENSE).replace(kv_cache_int8=True)
+    cfg = get_config(label)
+    if label == LM_HYBRID:
         cfg = cfg.replace(n_layers=LM_HYBRID_LAYERS,
                           block_pattern=cfg.block_pattern[:LM_HYBRID_LAYERS])
+    elif label == LM_VLM:
+        cfg = cfg.replace(n_layers=LM_VLM_LAYERS)
     return cfg
 
 
-def prefill_launches(cfg):
-    """The kernel launches of one prefill of `cfg`: one flash_attention,
-    mamba_scan or rwkv6_scan per attention, Mamba or RWKV layer; none of
-    the solver kernels."""
-    kinds = {"flash_attention": ("attn", "attn_moe"),
-             "mamba_scan": ("mamba", "mamba_moe"), "rwkv6_scan": ("rwkv",)}
-    want = {k: cfg.n_periods * sum(kind in ks for kind in cfg.block_pattern)
-            for k, ks in kinds.items()}
+def lm_prompt(cfg):
+    return LM_AUDIO_PROMPT if cfg.encoder_layers else LM_PROMPT
+
+
+def prefill_launches(cfg, cross_cache=False):
+    """The kernel launches of one prefill of `cfg`, with frames for an
+    encoder config (as serve.main gives them): one flash_attention per
+    attention layer (GQA or MLA), per encoder layer and two per attn_cross
+    layer (self- and cross-attention), one mamba_scan or rwkv6_scan per
+    Mamba or RWKV layer; none of the solver kernels. On the cross-cache
+    path (`cross_cache`) the encoder ran in prepare_cross_cache and an
+    attn_cross layer's prefill launches only its self-attention."""
+    per_kind = {"flash_attention": {"attn": 1, "attn_moe": 1,
+                                    "attn_cross": 1 if cross_cache else 2},
+                "mamba_scan": {"mamba": 1, "mamba_moe": 1},
+                "rwkv6_scan": {"rwkv": 1}}
+    want = {k: cfg.n_periods * sum(m.get(kind, 0)
+                                   for kind in cfg.block_pattern)
+            for k, m in per_kind.items()}
+    if not cross_cache:
+        want["flash_attention"] += cfg.encoder_layers
     return dict(want, sp1_lambda_sum=0, waterfill_gprime=0)
 
 
-def serve_argv():
+def decode_launches(cfg, cross_cache=False):
+    """The kernel launches of one decode step: with frames in every step
+    (serve.main's encoder-decoder path, as the reference's), the encoder's
+    flash_attention launches and one cross-attention per attn_cross layer;
+    none on any other path."""
+    n = 0 if cross_cache else cfg.encoder_layers \
+        + cfg.n_periods * cfg.block_pattern.count("attn_cross")
+    return dict(flash_attention=n, mamba_scan=0, rwkv6_scan=0,
+                sp1_lambda_sum=0, waterfill_gprime=0)
+
+
+def served_flash_calls(cfg, cross_cache=False, patches=False):
+    """{flash_main_cases() name: (launches per prefill, per decode step)}
+    of a served run of `cfg` (the encoder's launches in
+    prepare_cross_cache counted with the prefill's on the cross-cache
+    path)."""
+    n = {k: cfg.n_periods * cfg.block_pattern.count(k)
+         for k in set(cfg.block_pattern)}
+    if cfg.encoder_layers:
+        E, L, a = cfg.encoder_layers, n["attn_cross"], cfg.name
+        if cross_cache:
+            return {f"{a} encoder": (E, 0), f"{a} self": (L, 0)}
+        return {f"{a} encoder": (E, E), f"{a} self": (L, 0),
+                f"{a} cross": (L, 0), f"{a} cross decode": (0, L)}
+    L = n.get("attn", 0) + n.get("attn_moe", 0)
+    return {f"{cfg.name} patches" if patches else cfg.name: (L, 0)} if L \
+        else {}
+
+
+def want_bodies(bodies, calls, steps):
+    """The flash launches per body of a served run: each served attention
+    on the body `served_bodies` found for it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = dict.fromkeys(fa.BODIES, 0)
+    for name, (pre, dec) in calls.items():
+        out[bodies[name]] += pre + dec * steps
+    return out
+
+
+def request_inputs(torch, cfg, batch, prompt, seed, patches=False,
+                   device="cuda"):
+    """A request's tokens and, for an encoder config, its frames (x
+    LM_FRAME_SCALE) or, with `patches`, a VLM's patches (x LM_PATCH_SCALE),
+    drawn from `seed`: (tokens, {the non-token inputs})."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                         device=device)
+    extras = {}
+    if cfg.encoder_layers:
+        extras["frame_embeds"] = LM_FRAME_SCALE * torch.randn(
+            (batch, cfg.encoder_ctx, cfg.d_model), generator=g,
+            device=device)
+    elif patches:
+        extras["patch_embeds"] = LM_PATCH_SCALE * torch.randn(
+            (batch, cfg.n_patches, cfg.d_model), generator=g, device=device)
+    return toks, extras
+
+
+def cache_bytes(cache):
+    """Bytes of a cache's tensors (NamedTuples, dicts and lists of them)."""
+    if isinstance(cache, (list, tuple)):
+        return sum(cache_bytes(c) for c in cache)
+    if isinstance(cache, dict):
+        return sum(cache_bytes(c) for c in cache.values())
+    return cache.numel() * cache.element_size()
+
+
+def cache_to(cache, device):
+    """A copy of a cache on `device`."""
+    if isinstance(cache, list):
+        return [cache_to(c, device) for c in cache]
+    if isinstance(cache, dict):
+        return {k: cache_to(c, device) for k, c in cache.items()}
+    if isinstance(cache, tuple):
+        return type(cache)(*(cache_to(c, device) for c in cache))
+    return cache.to(device, copy=True)
+
+
+def serve_argv(prompt=LM_PROMPT):
     """serve.main's flags for the served traffic; the config goes in as
     `cfg=`."""
-    return ["--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+    return ["--batch", str(LM_BATCH), "--prompt-len", str(prompt),
             "--gen", str(LM_GEN), "--seed", str(LM_SEED), "--device", "cuda"]
 
 
@@ -3266,151 +3474,477 @@ def trace_call(torch, fn, within=None):
                       if PORT_KERNEL_KEY.search(name)], **extra)
 
 
-def phase_lm_serve(torch):
-    """`repro_torch.launch.serve.main` for the three configurations (jamba
-    cut to LM_HYBRID_LAYERS, the others whole), twice each (the same
-    tokens), then the decode cache's hand-over: a prefill over prompt +
-    first generated token against the first decode step, with that prefill
-    traced."""
+def handover(torch, model, cfg, toks, extras, step_extras=None,
+             prepare=None, tol=LM_HANDOVER_TOL):
+    """The decode cache's hand-over: a prefill over the request (`toks`
+    and `extras`; `prepare(cache)` first, if given) and the first decode
+    step at its length, both traced, against the last-position logits of
+    a prefill over the request plus that step's token. Returns (record,
+    gap, logit scale)."""
+    from repro_torch.models.transformer import (init_cache, prefill,
+                                                serve_step)
+
+    n = toks.shape[1] + (cfg.n_patches if "patch_embeds" in extras else 0)
+
+    def fresh():
+        cache = init_cache(cfg, toks.shape[0], n + 1, "cuda")
+        if prepare is not None:
+            prepare(cache)
+        return cache
+
+    cache = fresh()
+    (logits, cache), trace = trace_call(
+        torch, lambda: prefill(model, cfg, {"tokens": toks, **extras},
+                               cache))
+    t0 = logits[:, -1].argmax(-1)
+    del logits
+    (dec, cache), trace_dec = trace_call(
+        torch, lambda: serve_step(model, cfg, cache, t0, n, step_extras))
+    del cache
+    full, _ = prefill(model, cfg, {"tokens": torch.cat([toks, t0[:, None]],
+                                                       1), **extras},
+                      fresh())
+    ref = full[:, -1]
+    del full
+    gap = float((dec - ref).abs().max())
+    scale = float(ref.abs().max())
+    rec = dict(handover_max_abs=gap, handover_logit_scale=scale,
+               handover_tol=tol,
+               handover_same_argmax=float(
+                   (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+               prefill_profile=trace, decode_step_profile=trace_dec)
+    torch.cuda.empty_cache()
+    return rec, gap, scale
+
+
+def check_served(label, run, counts, want, bodies, want_body, gap, scale,
+                 tol=LM_HANDOVER_TOL):
+    check(run["logits_finite"], f"{label}: non-finite prefill logits")
+    check(run["same_tokens_twice"], f"{label}: two runs gave different "
+                                    "tokens")
+    check(counts == want, f"{label}: launches in the run {counts} (want "
+                          f"{want})")
+    check(bodies == want_body,
+          f"{label}: flash launches by body {bodies}, want {want_body} (each "
+          "served attention on the body flash_attention.body picks)")
+    check(gap <= tol * scale,
+          f"{label}: decode after prefill differs from the longer prefill "
+          f"by {gap:.3g} > {tol:g} x {scale:.3g}")
+
+
+def serve_run(torch, label, served):
+    """serve.main on lm_config(label) twice (the same tokens), its
+    per-phase launches and bodies, cache bytes, then the hand-over (frames
+    from the seed for an encoder config, in the prefill and the step)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_cache, init_model
+
+    cfg = lm_config(label)
+    P, steps = lm_prompt(cfg), LM_GEN - 1
+    want_pre, want_dec = prefill_launches(cfg), decode_launches(cfg)
+    want = {k: want_pre[k] + steps * want_dec[k] for k in want_pre}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    gen, counts, _, wall = counted(
+        torch, lambda: serve.main(serve_argv(P), stats=stats, cfg=cfg))
+    bodies = dict(fa.flash_attention.launches_by_body)
+    passes = dict(rw.rwkv6_scan.launches_by_pass)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last = stats.pop("prefill_last_logits")
+    finite = bool(torch.isfinite(last).all())
+    del last
+    torch.cuda.empty_cache()
+    gen2 = serve.main(serve_argv(P), cfg=cfg)
+    kv = init_cache(cfg, LM_BATCH, P + LM_GEN, "cuda")
+    run = dict(arch=label, dtype=cfg.dtype, layers=cfg.n_layers,
+               encoder_layers=cfg.encoder_layers,
+               block_pattern=list(cfg.block_pattern),
+               attention=cfg.attention, kv_cache_int8=cfg.kv_cache_int8,
+               d_model=cfg.d_model, batch=LM_BATCH, prompt=P, gen=LM_GEN,
+               wall_s=wall, peak_memory_gb=peak_gb,
+               cache_bytes=cache_bytes(kv), parameters=None,
+               logits_finite=finite, same_tokens_twice=torch.equal(gen, gen2),
+               launches=counts, flash_launches_by_body=bodies,
+               rwkv_launches_by_pass=passes, sample=gen[0, :12].tolist(),
+               **stats)
+    del kv
+    torch.cuda.empty_cache()
+
+    model = init_model(cfg, LM_SEED, "cuda")
+    run["parameters"] = sum(p.numel() for p in model.parameters())
+    toks, extras = request_inputs(torch, cfg, LM_BATCH, P, LM_SEED + 7)
+    tol = LM_HANDOVER_TOL_MLA if cfg.attention == "mla" else LM_HANDOVER_TOL
+    rec, gap, scale = handover(torch, model, cfg, toks, extras,
+                               step_extras=extras or None, tol=tol)
+    run.update(rec)
+    del model
+    torch.cuda.empty_cache()
+    if cfg.attention == "mla":
+        cfg32 = cfg.replace(dtype="float32")
+        model = init_model(cfg32, LM_SEED, "cuda")
+        rec32, gap32, scale32 = handover(torch, model, cfg32, toks, extras,
+                                         tol=LM_HANDOVER_TOL_F32)
+        run["float32_handover"] = {k: v for k, v in rec32.items()
+                                   if not k.endswith("profile")}
+        del model
+        torch.cuda.empty_cache()
+        check(gap32 <= LM_HANDOVER_TOL_F32 * scale32,
+              f"{label}: in float32, decode after prefill differs from the "
+              f"longer prefill by {gap32:.3g} > {LM_HANDOVER_TOL_F32:g} x "
+              f"{scale32:.3g}")
+    record("lm_serve", **run)
+    check(gen.shape == (LM_BATCH, LM_GEN), f"{label}: generated "
+                                            f"{tuple(gen.shape)}")
+    check(stats["prefill_launches"] == want_pre,
+          f"{label}: prefill launches {stats['prefill_launches']} (want "
+          f"{want_pre})")
+    want_steps = {k: steps * n for k, n in want_dec.items()}
+    check(stats["decode_launches"] == want_steps,
+          f"{label}: decode launches {stats['decode_launches']} (want "
+          f"{want_steps}: {want_dec} a step)")
+    check(passes == dict.fromkeys(passes, want["rwkv6_scan"]),
+          f"{label}: rwkv6 passes {passes} (want {want['rwkv6_scan']} each)")
+    check_served(label, run, counts, want, bodies,
+                 want_bodies(served, served_flash_calls(cfg), steps), gap,
+                 scale, tol)
+    return run
+
+
+def serve_cross_cache(torch, served):
+    """whisper-large-v3 on the admission path `prepare_cross_cache`
+    documents: `init_cache` with cross_kv_cache, the encoder once over
+    frames from the seed, `prefill` on tokens, then `serve_step` with no
+    extras, each step fed the default path's greedy token. Its logits
+    against the default path's (frames in the prefill and every step) on
+    the same frames and tokens, within the hand-over tolerance; twice,
+    bitwise; then its own hand-over."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
     from repro_torch.models.transformer import (init_cache, init_model,
-                                                prefill, serve_step)
+                                                prefill, prepare_cross_cache,
+                                                serve_step)
 
-    runs = {}
-    for arch in (LM_DENSE, LM_RWKV, LM_HYBRID):
-        cfg = lm_config(arch)
-        want = prefill_launches(cfg)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        stats = {}
-        gen, counts, _, wall = counted(
-            torch, lambda: serve.main(serve_argv(), stats=stats, cfg=cfg))
-        bodies = dict(fa.flash_attention.launches_by_body)
-        passes = dict(rw.rwkv6_scan.launches_by_pass)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        last = stats.pop("prefill_last_logits")
-        finite = bool(torch.isfinite(last).all())
-        del last
-        torch.cuda.empty_cache()
-        gen2 = serve.main(serve_argv(), cfg=cfg)
-        same = torch.equal(gen, gen2)
-        run = dict(arch=arch, dtype=cfg.dtype, layers=cfg.n_layers,
-                   block_pattern=list(cfg.block_pattern),
-                   d_model=cfg.d_model, batch=LM_BATCH, prompt=LM_PROMPT,
-                   gen=LM_GEN, wall_s=wall, peak_memory_gb=peak_gb,
-                   parameters=None, logits_finite=finite,
-                   same_tokens_twice=same, launches=counts,
-                   flash_launches_by_body=bodies,
-                   rwkv_launches_by_pass=passes,
-                   sample=gen[0, :12].tolist(), **stats)
-        torch.cuda.empty_cache()
+    base = lm_config(LM_AUDIO)
+    cfg = base.replace(cross_kv_cache=True)
+    P, steps, B = LM_AUDIO_PROMPT, LM_GEN - 1, LM_BATCH
+    model = init_model(base, LM_SEED, "cuda")
+    toks, extras = request_inputs(torch, base, B, P, LM_SEED + 11)
+    frames = extras["frame_embeds"]
 
-        # hand-over: prefill(prompt + t0)[-1] against decode(t0) at P
-        model = init_model(cfg, LM_SEED, "cuda")
-        run["parameters"] = sum(p.numel() for p in model.parameters())
-        g = torch.Generator(device="cuda").manual_seed(LM_SEED + 7)
-        toks = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
-                             generator=g, device="cuda")
-        cache = init_cache(cfg, LM_BATCH, LM_PROMPT + 1, "cuda")
-        (logits, cache), trace = trace_call(
-            torch, lambda: prefill(model, cfg, {"tokens": toks}, cache))
-        t0 = logits[:, -1].argmax(-1)
-        del logits
-        (dec, cache), trace_dec = trace_call(
-            torch, lambda: serve_step(model, cfg, cache, t0, LM_PROMPT))
-        del cache
-        full, _ = prefill(model, cfg,
-                          {"tokens": torch.cat([toks, t0[:, None]], 1)},
-                          init_cache(cfg, LM_BATCH, LM_PROMPT + 1, "cuda"))
-        ref = full[:, -1]
-        del full
-        gap = float((dec - ref).abs().max())
-        scale = float(ref.abs().max())
-        run.update(handover_max_abs=gap, handover_logit_scale=scale,
-                   handover_tol=LM_HANDOVER_TOL,
-                   handover_same_argmax=float(
-                       (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
-                   prefill_profile=trace, decode_step_profile=trace_dec)
-        del model, dec, ref
-        torch.cuda.empty_cache()
-        record("lm_serve", **run)
-        runs[arch] = run
-        check(gen.shape == (LM_BATCH, LM_GEN), f"{arch}: generated "
-                                                f"{tuple(gen.shape)}")
-        check(finite, f"{arch}: non-finite prefill logits")
-        check(same, f"{arch}: two runs gave different tokens")
-        check(stats["prefill_launches"] == want,
-              f"{arch}: prefill launches {stats['prefill_launches']} "
-              f"(want {want})")
-        check(not any(stats["decode_launches"].values()),
-              f"{arch}: kernel launches in decode {stats['decode_launches']}")
-        check(counts == want, f"{arch}: launches in the run {counts} "
-                              f"(want {want})")
-        check(bodies == {"wgmma": want["flash_attention"], "mma": 0,
-                         "simt": 0},
-              f"{arch}: flash launches by body {bodies}: every served one "
-              f"on wgmma ({want['flash_attention']})")
-        check(passes == dict.fromkeys(passes, want["rwkv6_scan"]),
-              f"{arch}: rwkv6 passes {passes} (want {want['rwkv6_scan']} "
-              f"each)")
-        check(gap <= LM_HANDOVER_TOL * scale,
-              f"{arch}: decode after prefill differs from the longer prefill "
-              f"by {gap:.3g} > {LM_HANDOVER_TOL:g} x {scale:.3g}")
-    return runs
+    cache = init_cache(base, B, P + LM_GEN, "cuda")
+    logits, cache = prefill(model, base, {"tokens": toks, **extras}, cache)
+    ref, fed = [logits[:, -1]], []
+    del logits
+    for i in range(steps):
+        fed.append(ref[-1].argmax(-1))
+        d, cache = serve_step(model, base, cache, fed[i], P + i, extras)
+        ref.append(d)
+    del cache
+
+    def admit():
+        times, launches = {}, {}
+        cache = init_cache(cfg, B, P + LM_GEN, "cuda")
+        for phase, fn in (
+                ("prepare", lambda: prepare_cross_cache(model, cfg, cache,
+                                                        frames)),
+                ("prefill", lambda: prefill(model, cfg, {"tokens": toks},
+                                            cache)),
+                ("decode", lambda: [serve_step(model, cfg, cache, fed[i],
+                                               P + i)[0]
+                                    for i in range(steps)])):
+            before = kops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[phase] = time.perf_counter() - t0
+            launches[phase] = {k: n - before[k]
+                               for k, n in kops.launch_counts().items()}
+            if phase == "prefill":
+                logits = [out[0][:, -1]]
+            elif phase == "decode":
+                logits += out
+        return logits, times, launches
+
+    torch.cuda.reset_peak_memory_stats()
+    (out, times, launches), counts, _, wall = counted(torch, admit)
+    bodies = dict(fa.flash_attention.launches_by_body)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    again, _, _ = admit()
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    gaps = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+    scale = max(float(r.abs().max()) for r in ref)
+    del again
+    kv = init_cache(cfg, B, P + LM_GEN, "cuda")
+    label = f"{LM_AUDIO} cross-cache"
+    run = dict(arch=label, dtype=cfg.dtype, layers=cfg.n_layers,
+               encoder_layers=cfg.encoder_layers, batch=B, prompt=P,
+               gen=LM_GEN, wall_s=wall, peak_memory_gb=peak_gb,
+               cache_bytes=cache_bytes(kv), prepare_s=times["prepare"],
+               prefill_s=times["prefill"], decode_s=times["decode"],
+               decode_tok_s=steps * B / max(times["decode"], 1e-9),
+               launches=counts, launches_by_phase=launches,
+               flash_launches_by_body=bodies,
+               logits_finite=all(bool(torch.isfinite(x).all()) for x in out),
+               same_tokens_twice=same, vs_default_path_max_abs=gaps,
+               vs_default_path_logit_scale=scale,
+               vs_default_path_tol=LM_HANDOVER_TOL)
+    del kv
+    rec, gap, hscale = handover(
+        torch, model, cfg, toks, {},
+        prepare=lambda c: prepare_cross_cache(model, cfg, c, frames))
+    run.update(rec)
+    del model
+    torch.cuda.empty_cache()
+    record("lm_serve", **run)
+    want_pre = prefill_launches(cfg, cross_cache=True)
+    want = {k: want_pre[k] for k in want_pre}
+    want["flash_attention"] += cfg.encoder_layers
+    check(launches["prepare"]["flash_attention"] == cfg.encoder_layers
+          and launches["prefill"] == want_pre
+          and not any(launches["decode"].values()),
+          f"{label}: launches by phase {launches} (want the encoder's "
+          f"{cfg.encoder_layers} in prepare, {want_pre} in the prefill, none "
+          "in decode)")
+    check(max(gaps) <= LM_HANDOVER_TOL * scale,
+          f"{label}: logits differ from the default path's by "
+          f"{max(gaps):.3g} > {LM_HANDOVER_TOL:g} x {scale:.3g}")
+    check_served(label, run, counts, want, bodies,
+                 want_bodies(served, served_flash_calls(cfg, True), steps),
+                 gap, hscale)
+    return run
 
 
-def phase_lm_card_vs_cpu(torch):
-    """The reduced configurations in float32: the same weights and tokens on
-    the card (the kernels) and on the CPU (their plain versions); prefill
-    logits and four decode steps' logits, each step fed the CPU's greedy
-    token."""
-    from repro_torch.configs import get_config
+def serve_patches(torch, served):
+    """The llava cut on a request with its patch prefix: `prefill` on
+    LM_PATCH_SCALE x N(0, 1) patches from the seed before a 2048-token
+    prompt (a cache of n_patches + prompt + gen slots), then greedy decode
+    from pos = n_patches + prompt; twice (the same tokens); then the
+    hand-over."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.models.transformer import (init_cache, init_model,
                                                 prefill, serve_step)
 
+    cfg = lm_config(LM_VLM)
+    P, steps, B = LM_PROMPT, LM_GEN - 1, LM_BATCH
+    n = cfg.n_patches + P
+    model = init_model(cfg, LM_SEED, "cuda")
+    toks, extras = request_inputs(torch, cfg, B, P, LM_SEED + 13,
+                                  patches=True)
+
+    def run_once(stats):
+        cache = init_cache(cfg, B, n + LM_GEN, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, cfg, {"tokens": toks, **extras},
+                                cache)
+        torch.cuda.synchronize()
+        stats["prefill_s"] = time.perf_counter() - t0
+        stats["prefill_launches"] = kops.launch_counts()
+        last = logits[:, -1]
+        stats["logits_shape"] = list(logits.shape)
+        del logits
+        tok = last.argmax(-1)
+        out = [tok]
+        t0 = time.perf_counter()
+        for t in range(n, n + steps):
+            d, cache = serve_step(model, cfg, cache, tok, t)
+            tok = d.argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        stats["decode_s"] = time.perf_counter() - t0
+        stats["decode_tok_s"] = steps * B / max(stats["decode_s"], 1e-9)
+        return torch.stack(out, 1), bool(torch.isfinite(last).all())
+
+    stats = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (gen, finite), counts, _, wall = counted(torch, lambda: run_once(stats))
+    bodies = dict(fa.flash_attention.launches_by_body)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen2, _ = run_once({})
+    kv = init_cache(cfg, B, n + LM_GEN, "cuda")
+    label = f"{LM_VLM} patches"
+    run = dict(arch=label, dtype=cfg.dtype, layers=cfg.n_layers,
+               d_model=cfg.d_model, batch=B, patches=cfg.n_patches, prompt=P,
+               gen=LM_GEN, wall_s=wall, peak_memory_gb=peak_gb,
+               cache_bytes=cache_bytes(kv),
+               parameters=sum(p.numel() for p in model.parameters()),
+               logits_finite=finite,
+               same_tokens_twice=torch.equal(gen, gen2), launches=counts,
+               flash_launches_by_body=bodies, sample=gen[0, :12].tolist(),
+               **stats)
+    del kv
+    rec, gap, scale = handover(torch, model, cfg, toks, extras)
+    run.update(rec)
+    del model
+    torch.cuda.empty_cache()
+    record("lm_serve", **run)
+    want = prefill_launches(cfg)
+    check(gen.shape == (B, LM_GEN), f"{label}: generated {tuple(gen.shape)}")
+    check(stats["logits_shape"] == [B, n, cfg.vocab_size],
+          f"{label}: prefill logits {stats['logits_shape']}, want patches "
+          "and tokens")
+    check_served(label, run, counts, want, bodies,
+                 want_bodies(served, served_flash_calls(cfg, patches=True),
+                             steps), gap, scale)
+    return run
+
+
+def phase_lm_serve(torch):
+    """`repro_torch.launch.serve.main` for every served configuration
+    (`lm_config`), twice each, with its hand-over; whisper-large-v3 also
+    on the cross-cache admission path and the llava cut with its patch
+    prefix."""
+    served = served_bodies(torch)
+    record("flash_served_bodies", bodies=served)
+    runs = {label: serve_run(torch, label, served)
+            for label in (LM_DENSE, LM_RWKV, LM_HYBRID, LM_MLA, LM_AUDIO,
+                          LM_VLM, LM_INT8)}
+    run = serve_cross_cache(torch, served)
+    runs[run["arch"]] = run
+    run = serve_patches(torch, served)
+    runs[run["arch"]] = run
+    return runs
+
+
+def lm_reduced_cases():
+    """The reduced configurations card vs CPU: (label, config, path), path
+    None, "cross-cache" (frames to prepare_cross_cache once) or "patches"
+    (patch_embeds before the prompt); an encoder config otherwise takes
+    its frames in the prefill and every step."""
+    from repro_torch.configs import get_config
+
+    def red(arch, **kw):
+        return get_config(arch).reduced().replace(dtype="float32", **kw)
+
+    return [(LM_DENSE, red(LM_DENSE, kv_heads=2), None),
+            (LM_RWKV, red(LM_RWKV), None),
+            (LM_HYBRID, red(LM_HYBRID, kv_heads=2), None),
+            (LM_MOE, red(LM_MOE), None),
+            (LM_MLA, red(LM_MLA), None),
+            (LM_AUDIO, red(LM_AUDIO), None),
+            (f"{LM_AUDIO} cross-cache", red(LM_AUDIO, cross_kv_cache=True),
+             "cross-cache"),
+            (f"{LM_VLM} patches", red(LM_VLM, kv_heads=2), "patches"),
+            (LM_INT8, red(LM_DENSE, kv_heads=2, kv_cache_int8=True), None)]
+
+
+def int8_codes(torch, cache):
+    """The int8 codes of a cache, flattened (none without an int8 cache)."""
+    codes = [getattr(e, f).reshape(-1).cpu().long() for c in cache
+             for e in c.values() if hasattr(e, "qk") for f in ("qk", "qv")]
+    return torch.cat(codes) if codes else torch.zeros(0, dtype=torch.long)
+
+
+def phase_lm_card_vs_cpu(torch):
+    """The reduced configurations in float32: the same weights and inputs
+    on the card (the kernels) and on the CPU (their plain versions);
+    prefill logits and four decode steps' logits, each step fed the CPU's
+    greedy token. With the int8 cache a code may round the other way
+    where x / scale lies within a few ulps of a half: the codes that
+    differ are counted, and each card step is also replayed on the CPU
+    from a copy of the card's cache, so that its logits are held to 1e-4
+    on equal inputs; the CPU's own path then differs from the card's by
+    what the differing codes move."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.transformer import (init_cache, init_model,
+                                                prefill, prepare_cross_cache,
+                                                serve_step)
+
     rows = []
     # P is a multiple of neither the rwkv chunk (16) nor the ssm chunk (32)
     B, P, steps = 2, 40, 4
-    for arch, kw in ((LM_DENSE, dict(kv_heads=2)), (LM_RWKV, {}),
-                     (LM_HYBRID, dict(kv_heads=2)), (LM_MOE, {})):
-        cfg = get_config(arch).reduced().replace(dtype="float32", **kw)
-        toks = torch.randint(0, cfg.vocab_size, (B, P),
-                             generator=torch.Generator().manual_seed(9))
-        out, fed = {}, []
-        for dev in ("cpu", "cuda"):
+    for label, cfg, path in lm_reduced_cases():
+        toks, extras = request_inputs(torch, cfg, B, P, 9,
+                                      patches=path == "patches",
+                                      device="cpu")
+        n = P + (cfg.n_patches if path == "patches" else 0)
+        step_extras = extras if cfg.encoder_layers and not path else None
+        out, fed, replay = {}, [], []
+        for on_card, dev in ((False, "cpu"), (True, "cuda")):
             model = init_model(cfg, LM_SEED, "cpu").to(dev)
+            ex = {k: v.to(dev) for k, v in extras.items()}
+            cache = init_cache(cfg, B, n + steps, dev)
             before = kops.launch_counts()
-            cache = init_cache(cfg, B, P + steps, dev)
-            logits, cache = prefill(model, cfg, {"tokens": toks.to(dev)},
-                                    cache)
+            batch = {"tokens": toks.to(dev)}
+            if path == "cross-cache":
+                prepare_cross_cache(model, cfg, cache, ex["frame_embeds"])
+            else:
+                batch.update(ex)
+            mid = kops.launch_counts()
+            logits, cache = prefill(model, cfg, batch, cache)
             after = kops.launch_counts()
-            seq = [logits.cpu()]
+            seq, dec_n = [logits.cpu()], []
+            cpu_model = init_model(cfg, LM_SEED, "cpu") if on_card \
+                else model
             for i in range(steps):
-                if dev == "cpu":
+                if not on_card:
                     fed.append(seq[-1][:, -1].argmax(-1) if i == 0
                                else seq[-1].argmax(-1))
-                d, cache = serve_step(model, cfg, cache, fed[i].to(dev),
-                                      P + i)
+                elif cfg.kv_cache_int8:
+                    r, _ = serve_step(cpu_model, cfg, cache_to(cache, "cpu"),
+                                      fed[i], n + i, None)
+                    replay.append(r)
+                b0 = kops.launch_counts()
+                d, cache = serve_step(
+                    model, cfg, cache, fed[i].to(dev), n + i,
+                    None if step_extras is None
+                    else {k: v.to(dev) for k, v in step_extras.items()})
+                dec_n.append({k: m - b0[k]
+                              for k, m in kops.launch_counts().items()})
                 seq.append(d.cpu())
-            out[dev] = (seq, {k: after[k] - before[k] for k in after})
-        (cpu, cpu_n), (card, card_n) = out["cpu"], out["cuda"]
+            out[on_card] = (seq, {k: mid[k] - before[k] for k in mid},
+                        {k: after[k] - mid[k] for k in mid}, dec_n,
+                        int8_codes(torch, cache))
+        (cpu, _, cpu_n, cpu_dec, cpu_codes), \
+            (card, card_prep, card_n, card_dec, card_codes) = \
+            out[False], out[True]
         gaps = [float((a - b).abs().max()) for a, b in zip(cpu, card)]
         same = all(torch.equal(a.argmax(-1), b.argmax(-1))
                    for a, b in zip(cpu, card))
-        rows.append(dict(arch=arch, reduced=True, dtype="float32",
-                         kv_heads=cfg.kv_heads, prompt=P, decode_steps=steps,
-                         prefill_max_abs=gaps[0], decode_max_abs=gaps[1:],
-                         tol=LM_CARD_CPU_TOL, same_argmax=same,
-                         card_prefill_launches=card_n,
-                         cpu_prefill_launches=cpu_n))
-        check(max(gaps) <= LM_CARD_CPU_TOL and same,
-              f"{arch} reduced: card vs CPU logits differ by {max(gaps):.3g}"
-              f" (tol {LM_CARD_CPU_TOL:g}), same argmax {same}")
-        check(card_n == prefill_launches(cfg) and not any(cpu_n.values()),
-              f"{arch} reduced: kernel launches card {card_n}, cpu {cpu_n}")
+        row = dict(arch=label, reduced=True, dtype="float32",
+                   kv_heads=cfg.kv_heads, prompt=P, prefix=n - P,
+                   decode_steps=steps, prefill_max_abs=gaps[0],
+                   decode_max_abs=gaps[1:], tol=LM_CARD_CPU_TOL,
+                   same_argmax=same, card_prepare_launches=card_prep,
+                   card_prefill_launches=card_n, cpu_prefill_launches=cpu_n,
+                   card_decode_launches=card_dec)
+        cross = path == "cross-cache"
+        want_dec = [decode_launches(cfg, cross)] * steps
+        check(card_n == prefill_launches(cfg, cross)
+              and card_dec == want_dec
+              and card_prep["flash_attention"]
+              == (cfg.encoder_layers if cross else 0)
+              and not any(cpu_n.values())
+              and not any(v for d in cpu_dec for v in d.values()),
+              f"{label} reduced: kernel launches card {card_prep} / {card_n} "
+              f"/ {card_dec}, cpu {cpu_n} / {cpu_dec}")
+        if cfg.kv_cache_int8:
+            diff = (card_codes - cpu_codes).abs()
+            replay_gaps = [float((r - c).abs().max())
+                           for r, c in zip(replay, card[1:])]
+            row.update(int8_codes=int(card_codes.numel()),
+                       int8_codes_differ=int((diff > 0).sum()),
+                       int8_code_max_diff=int(diff.max()),
+                       replay_decode_max_abs=replay_gaps)
+            check(gaps[0] <= LM_CARD_CPU_TOL and same
+                  and max(replay_gaps) <= LM_CARD_CPU_TOL
+                  and int(diff.max()) <= 1,
+                  f"{label} reduced: prefill {gaps[0]:.3g}, decode replayed "
+                  f"on the card's cache {replay_gaps} (tol "
+                  f"{LM_CARD_CPU_TOL:g}), codes apart by up to "
+                  f"{int(diff.max())}, same argmax {same}")
+        else:
+            check(max(gaps) <= LM_CARD_CPU_TOL and same,
+                  f"{label} reduced: card vs CPU logits differ by "
+                  f"{max(gaps):.3g} (tol {LM_CARD_CPU_TOL:g}), same argmax "
+                  f"{same}")
+        rows.append(row)
     record("lm_card_vs_cpu", cases=rows)
 
 

@@ -147,21 +147,25 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
     """A `models.transformer.Model` of `cfg` holding the parameters of a
     `repro` parameter tree, handed over as nested dicts of numpy arrays
     (the reference's `init_model` layout: "embed", "final_norm", optional
-    "lm_head", and "layers" with every leaf stacked over periods on axis
-    0). Port parameter `layers.i.<slot>.<...>.<leaf>` takes
-    `tree["layers"][<slot>]...[<leaf>][i]`; every other parameter takes the
-    leaf of the same dotted path. bfloat16 leaves (ml_dtypes) are read
-    through float32. `dtype` None keeps each parameter's own dtype (the
-    config's for weights, float32 for norms, decays and mixes)."""
+    "lm_head", "layers" with every leaf stacked over periods on axis 0,
+    and for an encoder config "encoder", stacked over encoder layers on
+    axis 0, and "enc_final_norm"). Port parameter
+    `layers.i.<slot>.<...>.<leaf>` takes `tree["layers"][<slot>]...
+    [<leaf>][i]`, `encoder.i.<...>.<leaf>` takes `tree["encoder"]...
+    [<leaf>][i]`; every other parameter takes the leaf of the same dotted
+    path. bfloat16 leaves (ml_dtypes) are read through float32. `dtype`
+    None keeps each parameter's own dtype (the config's for weights,
+    float32 for norms, decays and mixes)."""
     from .models.transformer import init_model
 
+    stacked = {"layers": cfg.n_periods, "encoder": cfg.encoder_layers}
     model = init_model(cfg, 0, device)
     used = 0
     with torch.no_grad():
         for name, param in model.named_parameters():
             parts = name.split(".")
-            if parts[0] == "layers":
-                arr = _leaf(tree, ["layers", *parts[2:]])[int(parts[1])]
+            if parts[0] in stacked:
+                arr = _leaf(tree, [parts[0], *parts[2:]])[int(parts[1])]
             else:
                 arr = _leaf(tree, parts)
             arr = np.asarray(arr)
@@ -174,8 +178,8 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
             dt = param.dtype if dtype is None else dtype
             param.data = torch.tensor(arr).to(device=param.device, dtype=dt)
             used += 1
-    expect = _count_leaves({k: v for k, v in tree.items() if k != "layers"}) \
-        + _count_leaves(tree.get("layers", {})) * cfg.n_periods
+    expect = sum(_count_leaves(v) * stacked.get(k, 1)
+                 for k, v in tree.items())
     if used != expect:
         raise ValueError(f"model_params_from_numpy: the tree holds {expect} "
                          f"per-layer leaves, the port's model {used}")

@@ -9,10 +9,12 @@ Port of `repro/launch/serve.py`, on CUDA unless `--device cpu` is given:
 
 Weights and prompts are drawn from `--seed` (there are no checkpoints).
 The prefill runs the flash-attention, mamba-scan or rwkv6 kernel once per
-attention, Mamba or RWKV layer; decode is plain torch. Dense GQA, MoE
-(mixtral, dbrx), hybrid Mamba + MoE (jamba) and RWKV6 configs run;
-MLA, encoder-decoder and VLM configs raise NotImplementedError. A caller
-may pass its own `ModelConfig` to `main(cfg=...)`, e.g. a depth cut.
+attention (GQA or MLA), Mamba or RWKV layer; decode is plain torch. An
+encoder-decoder config (whisper) gets zero frame embeddings in the
+prefill and in every decode step, as the reference serves it: the encoder
+and the decoder's cross-attention run the flash kernel in both. A VLM
+(llava) is served on tokens alone. A caller may pass its own
+`ModelConfig` to `main(cfg=...)`, e.g. a depth cut.
 """
 from __future__ import annotations
 
@@ -26,8 +28,7 @@ from ..configs import get_config
 from ..configs.base import ModelConfig
 from ..core.types import resolve_device
 from ..kernels import ops as kops
-from ..models.transformer import (check_ported, init_cache, init_model,
-                                  prefill)
+from ..models.transformer import init_cache, init_model, prefill
 from .steps import make_serve_step
 
 
@@ -62,7 +63,6 @@ def main(argv=None, stats: Optional[dict] = None,
                          "pass one")
     if args.reduced:
         cfg = cfg.reduced()
-    check_ported(cfg)
     device = resolve_device(args.device)
     model = init_model(cfg, args.seed, device)
 
@@ -72,12 +72,18 @@ def main(argv=None, stats: Optional[dict] = None,
                             device=device)
     cache = init_cache(cfg, B, P + args.gen, device)
     serve = make_serve_step(cfg)
+    extras = None
+    if cfg.encoder_layers:
+        extras = {"frame_embeds": torch.zeros(
+            (B, cfg.encoder_ctx, cfg.d_model), dtype=cfg.torch_dtype,
+            device=device)}
+    pbatch = {"tokens": prompts, **(extras or {})}
 
     # block prefill: one forward fills the decode cache
     launches0 = kops.launch_counts()
     _sync(device)
     t0 = time.perf_counter()
-    logits_all, cache = prefill(model, cfg, {"tokens": prompts}, cache)
+    logits_all, cache = prefill(model, cfg, pbatch, cache)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     launches1 = kops.launch_counts()
@@ -88,7 +94,7 @@ def main(argv=None, stats: Optional[dict] = None,
     out = [tok]
     t0 = time.perf_counter()
     for t in range(P, P + args.gen - 1):
-        logits, cache = serve(model, cache, tok, t)
+        logits, cache = serve(model, cache, tok, t, extras)
         tok = logits.argmax(-1)
         out.append(tok)
     _sync(device)

@@ -19,7 +19,7 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def make_serve_step(cfg: ModelConfig):
-    def _serve(model, cache, token, pos):
-        return serve_step(model, cfg, cache, token, pos)
+    def _serve(model, cache, token, pos, extras=None):
+        return serve_step(model, cfg, cache, token, pos, extras)
 
     return _serve

@@ -1,24 +1,31 @@
-"""The model stack for serving: embedding, layer periods, head.
+"""The model stack for serving: embedding, layer periods, encoder, head.
 
-Port of `repro/models/transformer.py` for the layer kinds `attn` (GQA
-self-attention + SwiGLU MLP), `attn_moe` (the same with a MoE in place of
-the MLP), `mamba` / `mamba_moe` (the Mamba mixer + MLP or MoE) and `rwkv`
-(RWKV6 time mix + channel mix).
+Port of `repro/models/transformer.py` for every layer kind: `attn` (GQA
+or MLA self-attention + SwiGLU MLP), `attn_moe` (the same with a MoE in
+place of the MLP), `attn_cross` (decoder self-attention, cross-attention
+over the encoder output, MLP), `enc_attn` (the encoder's non-causal
+self-attention, no RoPE), `mamba` / `mamba_moe` (the Mamba mixer + MLP or
+MoE) and `rwkv` (RWKV6 time mix + channel mix).
 A config's `block_pattern` lists the kinds of one period; the reference
 stacks each slot's parameters over periods and runs them under
 `jax.lax.scan`, the port keeps one module per layer (`Model.layers[i]` is
 period i, a `ModuleDict` keyed like the reference's period dict, e.g.
-"s0_attn") and loops over them in Python. Parameter names mirror the JAX
-leaves: `layers.3.s0_attn.attn.wq` is `params["layers"]["s0_attn"]["attn"]
-["wq"][3]`.
+"s0_attn"; `Model.encoder[i]` is encoder layer i) and loops over them in
+Python. Parameter names mirror the JAX leaves: `layers.3.s0_attn.attn.wq`
+is `params["layers"]["s0_attn"]["attn"]["wq"][3]`, `encoder.5.attn.wq` is
+`params["encoder"]["attn"]["wq"][5]`.
 
 Modes: "prefill" (full sequence, fills the decode cache; the flash,
-mamba and rwkv6 kernels run here) and "decode" (one token per call against
-the cache, plain torch). MLA, cross-attention, encoders, the int8 KV cache
-and patch prefixes are not ported and raise `NotImplementedError`.
+mamba and rwkv6 kernels run here, and the encoder when frames are given)
+and "decode" (one token per call against the cache, plain torch, except
+the encoder and the cross-attention over its output when frames are
+passed to every step, as the reference's default decode does).
+Encoder-decoder requests can instead run the encoder once at admission
+(`prepare_cross_cache`) and decode against cached cross K/V.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -35,32 +42,12 @@ from .layers import (MLP, Embed, LMHead, RMSNorm, apply_mlp, embed_tokens,
 Tensor = torch.Tensor
 Cache = List[Dict[str, object]]
 
-PORTED_KINDS = ("attn", "attn_moe", "mamba", "mamba_moe", "rwkv")
+ATTN_KINDS = ("attn", "attn_moe", "enc_attn", "attn_cross")
 
 
-def unported(cfg: ModelConfig) -> List[str]:
-    """What of `cfg` this port cannot run yet: layer kinds outside
-    PORTED_KINDS and the attention options it lacks."""
-    out = sorted({k for k in cfg.block_pattern if k not in PORTED_KINDS})
-    if cfg.attention == "mla" and any(k.startswith("attn")
-                                      for k in cfg.block_pattern):
-        out.append("attention=mla")
-    if cfg.kv_cache_int8:
-        out.append("kv_cache_int8")
-    if cfg.encoder_layers:
-        out.append("encoder")
-    if cfg.n_patches:
-        out.append("patch prefix")
-    return out
-
-
-def check_ported(cfg: ModelConfig):
-    missing = unported(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            f"layer kinds {', '.join(PORTED_KINDS)}; ROADMAP.md, Queue 1 "
-            "item 12)")
+def _is_mla(kind: str, cfg: ModelConfig) -> bool:
+    """MLA replaces every attention but the encoder's."""
+    return cfg.attention == "mla" and kind != "enc_attn"
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +60,21 @@ class Sublayer(nn.Module):
         dev, dt = gen.device, cfg.torch_dtype
         self.norm1 = RMSNorm(cfg.d_model, dev)
         self.norm2 = RMSNorm(cfg.d_model, dev)
-        if kind in ("attn", "attn_moe"):
-            self.attn = attn_lib.init_attention(
-                gen, cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim,
-                cfg.qkv_bias, dt)
+        if kind in ATTN_KINDS:
+            if _is_mla(kind, cfg):
+                self.attn = attn_lib.init_mla(
+                    gen, cfg.d_model, cfg.n_heads, cfg.q_lora_rank,
+                    cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                    cfg.v_head_dim, dt)
+            else:
+                self.attn = attn_lib.init_attention(
+                    gen, cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                    cfg.head_dim, cfg.qkv_bias, dt)
+            if kind == "attn_cross":
+                self.xattn = attn_lib.init_attention(
+                    gen, cfg.d_model, cfg.n_heads, cfg.n_heads, cfg.head_dim,
+                    False, dt)
+                self.norm3 = RMSNorm(cfg.d_model, dev)
         elif kind in ("mamba", "mamba_moe"):
             self.mamba = ssm_lib.Mamba(gen, cfg.d_model, cfg.d_inner,
                                        cfg.d_state, cfg.d_conv, dtype=dt)
@@ -84,7 +82,7 @@ class Sublayer(nn.Module):
             self.rwkv = ssm_lib.RWKV(gen, cfg.d_model, cfg.n_heads,
                                      cfg.head_dim, cfg.d_ff, dt)
         else:
-            raise NotImplementedError(f"layer kind {kind!r} not ported yet")
+            raise ValueError(f"unknown layer kind {kind!r}")
         if kind.endswith("_moe"):
             self.moe = moe_lib.MoE(gen, cfg.d_model, cfg.d_ff,
                                    cfg.n_experts, dt)
@@ -95,7 +93,6 @@ class Sublayer(nn.Module):
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.embed = Embed(gen, cfg.vocab_size, cfg.d_model, cfg.torch_dtype)
         self.lm_head = None if cfg.tied_embeddings else LMHead(
@@ -105,6 +102,13 @@ class Model(nn.Module):
             nn.ModuleDict({f"s{i}_{kind}": Sublayer(kind, gen, cfg)
                            for i, kind in enumerate(cfg.block_pattern)})
             for _ in range(cfg.n_periods))
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(
+                Sublayer("enc_attn", gen, cfg)
+                for _ in range(cfg.encoder_layers))
+            self.enc_final_norm = RMSNorm(cfg.d_model, gen.device)
+        else:
+            self.encoder = self.enc_final_norm = None
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
@@ -124,29 +128,44 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> Cache:
     """One dict per period, keyed like its layers. Sliding-window attention
-    gets a ring buffer of `window` slots, full attention `max_seq` slots,
-    Mamba and RWKV layers their O(1) state."""
-    check_ported(cfg)
+    gets a ring buffer of `window` slots, full attention `max_seq` slots
+    (MLA its latent cache; int8 codes and scales with `kv_cache_int8`),
+    Mamba and RWKV layers their O(1) state. With `cross_kv_cache`, an
+    `attn_cross` slot is {"self": its KV cache, "cross": a zero CrossKV}
+    that `prepare_cross_cache` fills."""
+    dt = cfg.torch_dtype
     out = []
     for _ in range(cfg.n_periods):
         c = {}
         for i, kind in enumerate(cfg.block_pattern):
             nm = f"s{i}_{kind}"
-            if kind in ("attn", "attn_moe"):
+            if kind in ("attn", "attn_moe", "attn_cross"):
                 slots = min(cfg.sliding_window, max_seq) \
                     if cfg.sliding_window else max_seq
-                c[nm] = attn_lib.init_kv_cache(
-                    batch, slots, cfg.kv_heads, cfg.head_dim,
-                    cfg.torch_dtype, quantized=cfg.kv_cache_int8,
-                    device=device)
+                if _is_mla(kind, cfg):
+                    c[nm] = attn_lib.init_mla_cache(
+                        batch, slots, cfg.kv_lora_rank, cfg.qk_rope_dim, dt,
+                        device=device)
+                else:
+                    c[nm] = attn_lib.init_kv_cache(
+                        batch, slots, cfg.kv_heads, cfg.head_dim, dt,
+                        quantized=cfg.kv_cache_int8, device=device)
+                if kind == "attn_cross" and cfg.cross_kv_cache:
+                    shp = (batch, cfg.encoder_ctx, cfg.n_heads, cfg.head_dim)
+                    c[nm] = {"self": c[nm], "cross": attn_lib.CrossKV(
+                        xk=torch.zeros(shp, dtype=dt, device=device),
+                        xv=torch.zeros(shp, dtype=dt, device=device))}
             elif kind in ("mamba", "mamba_moe"):
                 c[nm] = ssm_lib.init_mamba_cache(
-                    batch, cfg.d_inner, cfg.d_state, cfg.d_conv,
-                    cfg.torch_dtype, device=device)
-            else:
+                    batch, cfg.d_inner, cfg.d_state, cfg.d_conv, dt,
+                    device=device)
+            elif kind == "rwkv":
                 c[nm] = ssm_lib.init_rwkv_cache(batch, cfg.d_model,
                                                 cfg.n_heads, cfg.head_dim,
                                                 device=device)
+            else:
+                raise ValueError(f"init_cache: no cache for layer kind "
+                                 f"{kind!r}")
         out.append(c)
     return out
 
@@ -167,16 +186,44 @@ def _ffn(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor
 
 
 def _sublayer(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor, *,
-              mode: str, cache, pos
+              mode: str, cache, pos, enc_out: Optional[Tensor] = None
               ) -> Tuple[Tensor, object, Optional[Tensor]]:
     """Apply one sublayer. Returns (x, new_cache, MoE aux loss or None)."""
-    if kind in ("attn", "attn_moe"):
+    if kind in ATTN_KINDS:
+        cross_c = None
+        if kind == "attn_cross" and isinstance(cache, dict):
+            cross_c, cache = cache["cross"], cache["self"]
         h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
-        o, new_c = attn_lib.attention(
-            p.attn, h, mode=mode, cache=cache, pos=pos,
-            window=cfg.sliding_window, causal=True,
-            rope_theta=cfg.rope_theta)
-        x, aux = _ffn(kind, p, cfg, x + o)
+        if _is_mla(kind, cfg):
+            o, new_c = attn_lib.mla_attention(
+                p.attn, h, qk_nope_dim=cfg.qk_nope_dim,
+                qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
+                mode=mode, cache=cache, pos=pos, window=cfg.sliding_window,
+                rope_theta=cfg.rope_theta)
+        else:
+            enc = kind == "enc_attn"
+            o, new_c = attn_lib.attention(
+                p.attn, h, mode=mode, cache=cache, pos=pos,
+                window=None if enc else cfg.sliding_window, causal=not enc,
+                rope_theta=cfg.rope_theta, use_rope=not enc)
+        x = x + o
+        if kind == "attn_cross":
+            h = rms_norm(x, p.norm3.scale, cfg.norm_eps)
+            if cross_c is not None:
+                o, _ = attn_lib.attention(p.xattn, h, mode="train",
+                                          cross_kv=cross_c, causal=False)
+            elif enc_out is not None:
+                o, _ = attn_lib.attention(p.xattn, h, mode="train",
+                                          kv_x=enc_out, causal=False)
+            else:
+                raise ValueError(
+                    "attn_cross: no encoder output; pass frame_embeds or "
+                    "enc_out, or decode against a cache filled by "
+                    "prepare_cross_cache")
+            x = x + o
+        x, aux = _ffn(kind, p, cfg, x)
+        if cross_c is not None:
+            return x, {"self": new_c, "cross": cross_c}, aux
         return x, new_c, aux
 
     if kind in ("mamba", "mamba_moe"):
@@ -203,7 +250,31 @@ def _sublayer(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor, *,
                                   x_cm=x_cm.to(torch.bfloat16))
         return x, new_c, None
 
-    raise NotImplementedError(f"layer kind {kind!r} not ported yet")
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def _encoder_forward(model: Model, cfg: ModelConfig, frames: Tensor
+                     ) -> Tensor:
+    """The encoder over precomputed frame embeddings (B, T, D) (the audio
+    frontend is a stub, as in the reference): sinusoidal positions,
+    computed in float32 and added after the cast to the config's dtype,
+    then the encoder layers (the flash kernel, non-causal, no RoPE) and
+    `enc_final_norm`."""
+    if model.encoder is None:
+        raise ValueError(f"{cfg.name}: no encoder")
+    x = frames.to(cfg.torch_dtype)
+    half = cfg.d_model // 2
+    pos = torch.arange(x.shape[1], device=x.device, dtype=torch.float32)
+    freqs = torch.exp(-torch.arange(half, device=x.device,
+                                    dtype=torch.float32)
+                      / max(half - 1, 1) * math.log(10000.0))
+    ang = pos[:, None] * freqs
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+    x = x + pe[None].to(x.dtype)
+    for p in model.encoder:
+        x, _, _ = _sublayer("enc_attn", p, cfg, x, mode="train", cache=None,
+                            pos=None)
+    return rms_norm(x, model.enc_final_norm.scale, cfg.norm_eps)
 
 
 def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
@@ -213,8 +284,17 @@ def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
     """Returns (logits (B, S, V) float32, the MoE layers' summed aux loss
     (float32, 0 without MoE), new cache).
 
-    batch: {"tokens": (B, S)}."""
+    batch: {"tokens": (B, S)} plus, optionally, "enc_out" (a precomputed
+    encoder output) or "frame_embeds" (B, encoder_ctx, D) for an encoder
+    config, and "patch_embeds" (B, n_patches, D) for a VLM, put before the
+    token embeddings except in decode (the logits then cover patches and
+    tokens)."""
     x = embed_tokens(model.embed, batch["tokens"]).to(cfg.torch_dtype)
+    enc_out = batch.get("enc_out")
+    if enc_out is None and cfg.encoder_layers and "frame_embeds" in batch:
+        enc_out = _encoder_forward(model, cfg, batch["frame_embeds"])
+    if cfg.n_patches and "patch_embeds" in batch and mode != "decode":
+        x = torch.cat([batch["patch_embeds"].to(cfg.torch_dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if cache is not None else None
     for i, period in enumerate(model.layers):
@@ -223,7 +303,7 @@ def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
             kind = nm.split("_", 1)[1]
             c_in = cache[i][nm] if cache is not None else None
             x, c_out, a = _sublayer(kind, p, cfg, x, mode=mode, cache=c_in,
-                                    pos=pos)
+                                    pos=pos, enc_out=enc_out)
             if a is not None:
                 aux = aux + a
             new_cs[nm] = c_out if c_out is not None else c_in
@@ -235,12 +315,33 @@ def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
 
 
 @torch.no_grad()
+def prepare_cross_cache(model: Model, cfg: ModelConfig, cache: Cache,
+                        frame_embeds: Tensor) -> Tuple[Cache, Tensor]:
+    """Run the encoder once and fill every `attn_cross` layer's CrossKV
+    entry of `cache` (from `init_cache` with `cross_kv_cache`), in place.
+    Returns (cache, enc_out). The admission step that makes each decode
+    step encoder-free: prefill and serve_step then take no frames."""
+    if not cfg.cross_kv_cache:
+        raise ValueError(f"{cfg.name}: prepare_cross_cache needs "
+                         "cross_kv_cache=True")
+    enc_out = _encoder_forward(model, cfg, frame_embeds)
+    for period, c in zip(model.layers, cache):
+        for nm, p in period.items():
+            if nm.split("_", 1)[1] == "attn_cross":
+                xkv = attn_lib.make_cross_kv(p.xattn, enc_out)
+                c[nm]["cross"].xk.copy_(xkv.xk)
+                c[nm]["cross"].xv.copy_(xkv.xv)
+    return cache, enc_out
+
+
+@torch.no_grad()
 def prefill(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
             cache: Cache) -> Tuple[Tensor, Cache]:
     """Block prefill: one full-sequence forward that also fills the decode
-    cache (attention K/V slots, Mamba conv tails and states, RWKV states).
-    Returns (logits, cache). Continue with serve_step(..., pos=prompt_len).
-    Any prompt length: the mamba scan runs over the whole sequence, and the
+    cache (attention K/V slots, MLA latents, Mamba conv tails and states,
+    RWKV states). Returns (logits, cache). Continue with
+    serve_step(..., pos=the prefilled length, patches included). Any
+    prompt length: the mamba scan runs over the whole sequence, and the
     rwkv scan pads its last chunk with state-preserving lanes."""
     logits, _, new_cache = model_forward(model, cfg, batch, mode="prefill",
                                          cache=cache)
@@ -249,10 +350,15 @@ def prefill(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
 
 @torch.no_grad()
 def serve_step(model: Model, cfg: ModelConfig, cache: Cache, token: Tensor,
-               pos: Union[int, Tensor]) -> Tuple[Tensor, Cache]:
+               pos: Union[int, Tensor],
+               extras: Optional[Dict[str, Tensor]] = None
+               ) -> Tuple[Tensor, Cache]:
     """One decode step: token (B,) at absolute position `pos` ->
-    (logits (B, V), new cache)."""
-    logits, _, new_cache = model_forward(model, cfg,
-                                         {"tokens": token[:, None]},
-                                         mode="decode", cache=cache, pos=pos)
+    (logits (B, V), new cache). `extras` carries the encoder's input
+    ("frame_embeds") or output ("enc_out") for encoder-decoder models."""
+    batch = {"tokens": token[:, None]}
+    if extras:
+        batch.update(extras)
+    logits, _, new_cache = model_forward(model, cfg, batch, mode="decode",
+                                         cache=cache, pos=pos)
     return logits[:, 0], new_cache

@@ -584,6 +584,122 @@ def test_flash_attention_takes_strided_views(cuda):
     fa.flash_attention(q64.float(), k64.float(), v160.float())
 
 
+# the attentions of the serving options at reduced sizes, as the model
+# hands them over ((B, S, heads, hd) transposed): MLA's hd 96 / vd 64 (v a
+# column slice of the decompressed K/V) on mma.sync, the encoder's and the
+# cross-attention's non-causal T of 300 (not a multiple of the 128-key
+# tile), a decode step's cross-attention (S = 1) and llava's causal GQA 7:1
+# over a ragged S on wgmma. (B, H, KV, S, T, hd, vd, causal, body)
+SERVED_OPTION_CASES = {
+    "mla": (2, 4, 4, 200, 200, 96, 64, True, "mma"),
+    "encoder": (2, 4, 4, 300, 300, 64, 64, False, "wgmma"),
+    "cross": (2, 4, 4, 70, 300, 64, 64, False, "wgmma"),
+    "cross-decode": (2, 4, 4, 1, 300, 64, 64, False, "wgmma"),
+    "llava": (1, 7, 1, 333, 333, 128, 128, True, "wgmma"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SERVED_OPTION_CASES))
+def test_flash_served_option_shapes_match_plain_version(cuda, case):
+    B, H, KV, S, T, hd, vd, causal, body = SERVED_OPTION_CASES[case]
+    q, k, v = flash_inputs(cuda, torch.bfloat16, B, H, KV, S, T, hd, vd)
+    q, k = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k))
+    nope = 64 if case == "mla" else 0
+    # MLA's v: the last vd columns of the decompressed (k_nope | v) rows
+    kv = torch.cat([torch.zeros_like(v[..., :1]).expand(
+        *v.shape[:3], nope), v], -1)
+    v = kv.transpose(1, 2).contiguous().transpose(1, 2)[..., nope:]
+    check_flash(q, k, v, causal, None, body)
+
+
+def whisper_cut():
+    """Reduced whisper-large-v3 with two heads of 64 (the served head
+    width) so that its bf16 attentions take the wgmma body."""
+    from repro_torch.configs import get_config
+
+    return get_config("whisper-large-v3").reduced().replace(
+        n_heads=2, kv_heads=2, head_dim=64)
+
+
+def whisper_run(cfg, device, cross_cache, feed=None, B=2, P=24, steps=3):
+    """Prefill and `steps` decode steps, frames in every step's extras or
+    in `prepare_cross_cache` once, each step fed the greedy token or the
+    one `feed` gives. Returns ([logits], [fed tokens], the flash launches
+    of [prepare, prefill, each step])."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tt
+
+    cfg = cfg.replace(cross_kv_cache=cross_cache)
+    model = tt.init_model(cfg, 0, "cpu").to(device)
+    rng = np.random.default_rng(3)
+    frames = torch.tensor(rng.standard_normal(
+        (B, cfg.encoder_ctx, cfg.d_model)) * 0.1, dtype=torch.float32,
+        device=device)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, P)),
+                        device=device)
+    cache = tt.init_cache(cfg, B, P + steps, device)
+    fa.reset_launches()
+    extras = None
+    if cross_cache:
+        tt.prepare_cross_cache(model, cfg, cache, frames)
+        batch = {"tokens": toks}
+    else:
+        extras = {"frame_embeds": frames}
+        batch = {"tokens": toks, **extras}
+    launches = [fa.flash_attention.launches]
+    logits, cache = tt.prefill(model, cfg, batch, cache)
+    launches.append(fa.flash_attention.launches - sum(launches))
+    out, fed = [logits[:, -1].float().cpu()], []
+    for i in range(steps):
+        fed.append(out[-1].argmax(-1) if feed is None else feed[i])
+        d, cache = tt.serve_step(model, cfg, cache, fed[i].to(device), P + i,
+                                 extras)
+        launches.append(fa.flash_attention.launches - sum(launches))
+        out.append(d.float().cpu())
+    return out, fed, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cross_cache", [False, True])
+def test_whisper_on_the_card_matches_the_cpu(cuda, cross_cache):
+    """Reduced whisper in float32, both cross-attention paths: the card's
+    logits (the flash kernel in the encoder, the prefill and, with frames
+    in every step, each decode step's encoder and cross-attention) equal
+    the CPU's to 1e-4, each step fed the CPU's greedy token."""
+    cfg = whisper_cut().replace(dtype="float32")
+    cpu, fed, n_cpu = whisper_run(cfg, "cpu", cross_cache)
+    card, _, n = whisper_run(cfg, cuda, cross_cache, feed=fed)
+    E, L = cfg.encoder_layers, cfg.n_layers
+    if cross_cache:   # the encoder once at admission, then self-attention
+        assert n == [E, L, 0, 0, 0]
+    else:             # the encoder and the cross-attention in every step
+        assert n == [0, E + 2 * L, E + L, E + L, E + L]
+    assert not any(n_cpu)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_whisper_cross_paths_agree_on_the_card_in_bf16(cuda):
+    """bf16 at the served head width: every flash launch on wgmma, and on
+    the same tokens the cross-cache path's logits match the frames path's
+    within bf16's rounding of the two (its plain attention over cached K/V
+    rounds P to bf16 where the kernel's P V does too, but at other
+    points), relative to the largest logit as chip_smoke's hand-over."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = whisper_cut()
+    a, fed, _ = whisper_run(cfg, cuda, False)
+    by_body = dict(fa.flash_attention.launches_by_body)
+    b, _, _ = whisper_run(cfg, cuda, True, feed=fed)
+    assert by_body["mma"] == by_body["simt"] == 0 and by_body["wgmma"] > 0
+    assert fa.flash_attention.launches_by_body["wgmma"] \
+        == fa.flash_attention.launches > 0
+    for x, y in zip(a, b):
+        assert float((x - y).abs().max()) <= 5e-2 * float(y.abs().max())
+
+
 def rwkv_inputs(device, B, T, H, K, strong=False, seed=2):
     rng = np.random.default_rng(seed)
     r = rng.standard_normal((B, T, H, K)) * 0.5

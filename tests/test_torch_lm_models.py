@@ -2,14 +2,20 @@
 against the JAX package's (`repro.models.transformer`) on the CPU, in
 float32: reduced internlm2-20b (dense GQA, with kv_heads 2 so that both the
 group size and the KV head count exceed 1), reduced rwkv6-1.6b, reduced
-jamba-1.5-large-398b (Mamba, MoE and attention layers; kv_heads 2) and
-reduced mixtral-8x7b (attention + MoE, sliding window). The `repro`
-parameters are carried over through `interop.model_params_from_numpy`;
-prefill logits and four decode steps' logits agree to 1e-4 with the same
-greedy tokens. The prompt length (20) is not a multiple of the reduced
-rwkv chunk (16); jamba's (32) is a multiple of its reduced ssm chunk,
-because the reference's prefill with a cache asserts it (the port's does
-not, `test_decode_cache_hands_over`).
+jamba-1.5-large-398b (Mamba, MoE and attention layers; kv_heads 2),
+reduced mixtral-8x7b (attention + MoE, sliding window), reduced qwen2-72b
+(QKV bias, untied embeddings; kv_heads 2), reduced granite-34b (MQA),
+reduced dbrx-132b at its real routing (16 experts, top 4; kv_heads 2) and
+mixtral-8x7b with a window of 8, shorter than the prompt, so that the
+ring cache wraps. The `repro` parameters are carried over through
+`interop.model_params_from_numpy`; prefill logits and four decode steps'
+logits agree to 1e-4 with the same greedy tokens. The prompt length (20)
+is not a multiple of the reduced rwkv chunk (16); jamba's (32) is a
+multiple of its reduced ssm chunk, because the reference's prefill with a
+cache asserts it (the port's does not, `test_decode_cache_hands_over`).
+The other families (MLA, the encoder-decoder, the patch prefix, the int8
+cache) are held against `repro` in tests/test_torch_lm_families.py; their
+parameter names and init statistics here.
 """
 import dataclasses
 
@@ -33,27 +39,46 @@ from repro_torch.launch import serve
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as tt
 
-# reduced configs, float32; internlm2's and jamba's reduced kv_heads would
-# be 1 (MQA)
-CASES = {"internlm2-20b": dict(kv_heads=2), "rwkv6-1.6b": {},
-         "jamba-1.5-large-398b": dict(kv_heads=2), "mixtral-8x7b": {}}
+# case -> (config, the fields replaced in its reduced form), float32;
+# internlm2's, jamba's, qwen2's and dbrx's reduced kv_heads would be 1
+# (MQA), and dbrx's reduced routing top 2 of 4
+CASES = {"internlm2-20b": ("internlm2-20b", dict(kv_heads=2)),
+         "rwkv6-1.6b": ("rwkv6-1.6b", {}),
+         "jamba-1.5-large-398b": ("jamba-1.5-large-398b", dict(kv_heads=2)),
+         "mixtral-8x7b": ("mixtral-8x7b", {}),
+         "qwen2-72b": ("qwen2-72b", dict(kv_heads=2)),
+         "granite-34b": ("granite-34b", {}),
+         "dbrx-132b": ("dbrx-132b", dict(kv_heads=2, n_experts=16,
+                                         top_k=4)),
+         "mixtral-8x7b-window8": ("mixtral-8x7b", dict(sliding_window=8))}
+# the families tests/test_torch_lm_families.py serves, for the parameter
+# and init tests here
+FAMILIES = {"minicpm3-4b": ("minicpm3-4b", {}),
+            "whisper-large-v3": ("whisper-large-v3", {}),
+            "llava-next-34b": ("llava-next-34b", dict(kv_heads=2))}
 B, PROMPT, STEPS = 2, 20, 4
 # the reference's mamba prefill with a cache needs S % ssm_chunk == 0
 PROMPTS = {"jamba-1.5-large-398b": 32}
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def configs(arch):
-    kw = dict(CASES[arch], dtype="float32")
+def configs(case):
+    arch, kw = {**CASES, **FAMILIES}[case]
+    kw = dict(kw, dtype="float32")
     return jget(arch).reduced().replace(**kw), tget(arch).reduced().replace(
         **kw)
+
+
+def stacked_name(keys, i):
+    """The port's parameter name of layer i's leaf at the reference path
+    `keys` (under "layers" or "encoder", stacked on axis 0)."""
+    return ".".join([keys[0], str(i), *keys[1:]])
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def pair(request):
     """(JAX config, params), (port config, model) on the same weights."""
     cj, ct = configs(request.param)
-    assert not tt.unported(ct)
     params = jt.init_model(jax.random.PRNGKey(0), cj)
     tree = jax.tree_util.tree_map(np.asarray, params)
     return (cj, params), (ct, interop.model_params_from_numpy(
@@ -96,29 +121,32 @@ def test_configs_match_reference():
         == torch.float32
 
 
-@pytest.mark.parametrize("arch", sorted(CASES))
+@pytest.mark.parametrize("arch", sorted(CASES) + sorted(FAMILIES))
 def test_param_names_and_shapes_mirror_reference(arch):
     cj, ct = configs(arch)
     shapes = jax.eval_shape(lambda: jt.init_model(jax.random.PRNGKey(0), cj))
     model = tt.init_model(ct, 0, "cpu")
     ours = dict(model.named_parameters())
     flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
-    assert len(ours) == sum(cj.n_periods if str(p[0].key) == "layers" else 1
-                            for p, _ in flat)
+    stacked = {"layers": cj.n_periods, "encoder": cj.encoder_layers}
+    assert len(ours) == sum(stacked.get(str(p[0].key), 1) for p, _ in flat)
+    assert (cj.encoder_layers > 0) == any(n.startswith("encoder.")
+                                          for n in ours)
     for path, leaf in flat:
         keys = [str(k.key) for k in path]
-        if keys[0] == "layers":
-            for i in range(cj.n_periods):
-                name = ".".join(["layers", str(i), *keys[1:]])
+        if keys[0] in stacked:
+            for i in range(stacked[keys[0]]):
+                name = stacked_name(keys, i)
                 assert tuple(ours[name].shape) == leaf.shape[1:], name
         else:
             assert tuple(ours[".".join(keys)].shape) == leaf.shape
 
 
-@pytest.mark.parametrize("arch", sorted(CASES))
+@pytest.mark.parametrize("arch", sorted(CASES) + sorted(FAMILIES))
 def test_init_matches_reference_statistics(arch):
     """Weights come from a torch.Generator, so they match the reference in
-    distribution, not bit for bit: same means, scales and constants."""
+    distribution, not bit for bit: same means, scales and constants (the
+    encoder's layers and MLA's sd of 0.02 included)."""
     cj, ct = configs(arch)
     params = jt.init_model(jax.random.PRNGKey(1), cj)
     tree = dict(jax.tree_util.tree_flatten_with_path(params)[0])
@@ -126,10 +154,9 @@ def test_init_matches_reference_statistics(arch):
     ours = dict(model.named_parameters())
     for path, leaf in tree.items():
         keys = [str(k.key) for k in path]
-        name = ".".join(["layers", "0", *keys[1:]]) if keys[0] == "layers" \
-            else ".".join(keys)
-        ref = np.asarray(leaf[0] if keys[0] == "layers" else leaf,
-                         np.float64)
+        layered = keys[0] in ("layers", "encoder")
+        name = stacked_name(keys, 0) if layered else ".".join(keys)
+        ref = np.asarray(leaf[0] if layered else leaf, np.float64)
         got = ours[name].double().numpy()
         if ref.std() == 0:
             np.testing.assert_array_equal(got, ref)
@@ -138,6 +165,8 @@ def test_init_matches_reference_statistics(arch):
         elif ref.size >= 1024:
             assert got.std() == pytest.approx(ref.std(), rel=0.1), name
             assert abs(got.mean()) < 4 * ref.std() / np.sqrt(ref.size)
+            if cj.attention == "mla" and keys[-2] == "attn":
+                assert got.std() == pytest.approx(0.02, rel=0.1), name
 
 
 def test_prefill_logits_match(runs):
@@ -194,7 +223,7 @@ def test_decode_cache_hands_over(pair):
     torch.testing.assert_close(dec, full[:, -1], rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("arch", sorted(CASES))
+@pytest.mark.parametrize("arch", sorted({a for a, _ in CASES.values()}))
 def test_serve_main_runs_on_the_cpu(arch, capsys):
     stats = {}
     gen = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
@@ -226,15 +255,6 @@ def test_serve_main_serves_a_given_config(capsys):
         "jamba-1.5-large-398b: prefill 24 toks")
     with pytest.raises(ValueError, match="both given"):
         serve.main(["--arch", "internlm2-20b", *argv], cfg=cut)
-
-
-@pytest.mark.parametrize("arch, kind", [
-    ("minicpm3-4b", "attention=mla"), ("whisper-large-v3", "attn_cross"),
-    ("llava-next-34b", "patch prefix"),
-])
-def test_unported_archs_raise(arch, kind):
-    with pytest.raises(NotImplementedError, match=kind):
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
 
 
 def test_layer_units_match_reference():
