@@ -94,6 +94,21 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          seconds read off the obs spans); outer_iters=0 equals the fleet
          solve of the nearest association and `region_mesh()` equals no
          mesh, bit for bit;
+       - LM training through `repro_torch.launch.train.main` (AdamW on
+         the cosine schedule, lr 3e-5, clip 1.0), bf16, batch 4 x 2048
+         tokens of the port's pipeline, 8 steps: internlm2-20b at full
+         width cut to its first 4 layers (remat on: 8 flash_attention
+         launches a step, the forward and its recompute, all wgmma), with
+         --ckpt and the checkpoint restored bit for bit, and rwkv6-1.6b
+         whole (48 rwkv6_scan calls a step); after step 1 every
+         parameter's gradient present, finite and not all zero; one more
+         step of each traced; two 3-step runs of the internlm2 cut under
+         PyTorch's deterministic mode give the same losses bit for bit;
+         each LM kernel's autograd Function (the kernel forward, the
+         reference's training formulation in the backward) against
+         autograd through its plain version (flash bf16 and float32,
+         causal and windowed, GQA 6:1 at S 512 and 300; rwkv6 and mamba
+         at S 300, float32);
        - FL training (`fl.simulate`) on the paper's cell (N = 50, one FL
          client each) with the client CNN at its published widths
          (configs/flmar_cnn.py), 256 frames a client, 10 rounds of 5
@@ -118,7 +133,9 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      mixtral-8x7b, minicpm3-4b, whisper-large-v3 on both cross paths,
      llava-next-34b with patches and internlm2-20b with the int8 cache
      (its differing codes counted, each step replayed on the CPU from
-     the card's cache); and in float64 the rounds engine on 4 cells x 64
+     the card's cache), and one reduced train step of internlm2-20b,
+     rwkv6-1.6b, jamba-1.5-large-398b and minicpm3-4b (loss, grad_norm,
+     every parameter); and in float64 the rounds engine on 4 cells x 64
      devices from one set of draws (locating the SP2 search with the
      largest eval gap and replaying it on the CPU with the card's inputs
      and with the card's exp / log1p), solve_and_grad on those 4 cells
@@ -141,8 +158,8 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
   6. traces one fleet solve, one deadline-fleet solve, one warm
      Theorem-2 call on the region, one served batch of the region serving
      stack (its `solve` span's range holds all its sp1_lambda_sum kernels)
-     and one LM prefill and decode step per configuration with
-     torch.profiler: the card's
+     one LM prefill and decode step per configuration and one train step
+     of each LM training run with torch.profiler: the card's
      busy time and idle share, the kernels that take the most time, and
      the port's own kernels.
 
@@ -344,6 +361,37 @@ RWKV_TOL = 1e-4
 # and sums over n in another order, ~1e-7 relative a step.
 MAMBA_TOL = 1e-4
 
+# LM training (launch.train.main), bf16, from seed 0, batch 4 x 2048 tokens
+# of the port's pipeline, 8 steps, AdamW on the cosine schedule:
+# internlm2-20b cut to its first 4 of 48 layers at full width (2.13 B
+# parameters, ~26 GB with AdamW's float32 moments and the gradients; the
+# whole model's weights, gradients and moments, ~240 GB, fit no card) and
+# rwkv6-1.6b whole; then 3 steps of the cut twice under the deterministic
+# mode, for their bits.
+LM_TRAIN_DENSE_LAYERS = 4
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 2048, 8
+# launch.train warms up over steps // 10 = 1 step, and a first Adam step
+# moves every weight by about lr: at full width the internlm2 cut's loss
+# rose from 12.7 to 29.9 in 3 steps at launch.train's default lr 3e-3 and
+# spiked to 52.5 at step 4 at 3e-4; these 8-step runs from random weights
+# take 3e-5.
+LM_TRAIN_LR = 3e-5
+LM_TRAIN_REPEAT_STEPS = 3
+# PyTorch's deterministic mode refusing an op (its own message, and the
+# one cuBLAS's workspace setting gives): the one error train_repeat records
+# in place of failing
+DETERMINISM_ERRORS = ("does not have a deterministic implementation",
+                      "CUBLAS_WORKSPACE_CONFIG")
+# A kernel Function (kernel forward, the training formulation's backward)
+# against autograd through the plain version, each output and input
+# gradient relative to the plain one's largest magnitude: bf16 rounds the
+# formulation's scores and probabilities (and the kernel its P) to bf16
+# where the plain version keeps float32, ~2^-8 relative a term; float32
+# sums the same terms in other orders.
+TRAIN_FN_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# a reduced float32 train step, card vs CPU: loss, grad_norm and parameters
+LM_TRAIN_CARD_CPU_TOL = 1e-4
+
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): HBM3
 # bandwidth, the FP32 / FP64 rates outside the tensor cores, and the bf16
 # tensor-core rate.
@@ -509,6 +557,13 @@ def main():
     phase("card_vs_cpu", phase_card_vs_cpu)
     phase("paper_paths", phase_paper_paths)
     phase("lm_card_vs_cpu", phase_lm_card_vs_cpu)
+    train_runs = phase("lm_train", phase_lm_train)
+    for k in kernels[2:]:
+        paths = {"lm_serve": k["launches"],
+                 "lm_train": sum(r["launches"][k["name"]]
+                                 for r in train_runs.values())}
+        k["launches"] = sum(paths.values())
+        k["launches_by_path"] = paths
     phase("kernel_times", phase_times, kernels)
     # after kernel_times: run before it, the serving traces' millions of
     # small launches left the mamba timing's profile with no launch caught
@@ -3946,6 +4001,340 @@ def phase_lm_card_vs_cpu(torch):
                   f"{same}")
         rows.append(row)
     record("lm_card_vs_cpu", cases=rows)
+
+
+# ---------------------------------------------------------------------------
+# LM training (phase lm_train)
+# ---------------------------------------------------------------------------
+
+def train_argv(steps, ckpt=None, batch=LM_TRAIN_BATCH):
+    """launch.train.main's flags for a full-width run; the config goes in
+    as `cfg=`."""
+    argv = ["--steps", str(steps), "--batch", str(batch), "--seq",
+            str(LM_TRAIN_SEQ), "--lr", str(LM_TRAIN_LR), "--log-every",
+            str(steps), "--device", "cuda"]
+    return argv + (["--ckpt", str(ckpt)] if ckpt else [])
+
+
+def train_config(label):
+    """internlm2-20b cut to its first LM_TRAIN_DENSE_LAYERS layers at full
+    width; rwkv6-1.6b whole."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(label)
+    if label == LM_DENSE:
+        cfg = cfg.replace(n_layers=LM_TRAIN_DENSE_LAYERS)
+    return cfg
+
+
+def train_batch(torch, cfg, batch=LM_TRAIN_BATCH):
+    """The pipeline's first batch (seed 0), as launch.train.main feeds it."""
+    from repro_torch.data import make_pipeline
+
+    b = next(make_pipeline(cfg.vocab_size, batch, LM_TRAIN_SEQ, seed=0,
+                           prefetch=0))
+    return {"tokens": torch.from_numpy(b["tokens"]).to("cuda").long()}
+
+
+def train_launches(cfg):
+    """Kernel launches of one train step: each attention / rwkv / mamba
+    layer's kernel once in the forward and, with remat, once more in the
+    backward's recompute of its period; the backward formulations launch
+    none."""
+    per = 2 if cfg.remat else 1
+    n = {k: cfg.n_periods * cfg.block_pattern.count(k)
+         for k in set(cfg.block_pattern)}
+    return dict(sp1_lambda_sum=0, waterfill_gprime=0,
+                flash_attention=per * (n.get("attn", 0)
+                                       + n.get("attn_moe", 0)),
+                rwkv6_scan=per * n.get("rwkv", 0),
+                mamba_scan=per * (n.get("mamba", 0) + n.get("mamba_moe", 0)))
+
+
+def train_run(torch, label):
+    """launch.train.main on train_config(label), bf16, LM_TRAIN_STEPS steps
+    of LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens, AdamW on the cosine schedule
+    from LM_TRAIN_LR;
+    internlm2's with --ckpt, restored after and compared bit for bit. Then
+    one more step traced, on the trained model and optimizer state."""
+    import shutil
+
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import param_tree
+    from repro_torch.optim import AdamW
+
+    cfg = train_config(label)
+    ckpt = ROOT / "build" / "lm_train_ckpt" if label == LM_DENSE else None
+    if ckpt is not None:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stats = {}
+    losses, counts, _, wall = counted(
+        torch, lambda: train.main(train_argv(LM_TRAIN_STEPS, ckpt),
+                                  stats=stats, cfg=cfg))
+    bodies = dict(fa.flash_attention.launches_by_body)
+    passes = dict(rw.rwkv6_scan.launches_by_pass)
+    model, state = stats.pop("model"), stats.pop("opt_state")
+    n_params = sum(1 for _ in model.parameters())
+    run = dict(arch=label, dtype=cfg.dtype, layers=cfg.n_layers,
+               d_model=cfg.d_model, remat=cfg.remat, batch=LM_TRAIN_BATCH,
+               seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
+               parameters=sum(p.numel() for p in model.parameters()),
+               wall_s=wall, step_s_median_2_8=statistics.median(
+                   stats["step_s"][1:]),
+               peak_memory_gb=stats.pop("peak_memory_bytes") / 1e9,
+               launches=counts, flash_launches_by_body=bodies,
+               rwkv_launches_by_pass=passes, **stats)
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        tree = param_tree(model)
+        back = restore(str(ckpt), {"params": tree})["params"]
+        flat_a, flat_b = dict(_flatten(tree)), dict(_flatten(back))
+        run["ckpt"] = dict(
+            step=latest_step(str(ckpt)), leaves=len(flat_a),
+            bytes=sum(f.stat().st_size for f in ckpt.glob("*.bin")),
+            equal=sorted(flat_a) == sorted(flat_b) and all(
+                flat_b[k].dtype == a.dtype
+                and torch.equal(flat_b[k], a.cpu())
+                for k, a in flat_a.items()),
+            restore_s=time.perf_counter() - t0)
+        del tree, back, flat_a, flat_b
+        shutil.rmtree(ckpt, ignore_errors=True)
+    step, _ = make_train_step(cfg, AdamW(lr=1e-5))
+    batch = train_batch(torch, cfg)
+    _, run["step_profile"] = trace_call(
+        torch, lambda: step(model, state, batch))
+    del model, state, batch
+    torch.cuda.empty_cache()
+    record("lm_train", **{k: v for k, v in run.items()
+                          if k not in ("loss", "grad_norm", "step_s")},
+           loss=run["loss"], grad_norm=run["grad_norm"],
+           step_s=run["step_s"])
+    want = train_launches(cfg)
+    check(len(losses) == LM_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses + run["grad_norm"]),
+        f"{label} train: losses {losses}, grad norms {run['grad_norm']}")
+    g1 = run["step1_grads"]
+    check(g1["params"] == n_params and not (g1["missing"] or g1["nonfinite"] or g1["zero"]),
+          f"{label} train: step 1 gradients {g1}")
+    check(all(d == want for d in run["step_launches"]),
+          f"{label} train: launches per step {run['step_launches']} (want "
+          f"{want})")
+    check(counts == {k: n * LM_TRAIN_STEPS for k, n in want.items()},
+          f"{label} train: launches in the run {counts}")
+    if want["flash_attention"]:
+        check(bodies["wgmma"] == counts["flash_attention"],
+              f"{label} train: flash bodies {bodies} (want every launch on "
+              "wgmma)")
+    check(passes == dict.fromkeys(passes, counts["rwkv6_scan"]),
+          f"{label} train: rwkv6 passes {passes}")
+    if ckpt is not None:
+        check(run["ckpt"]["equal"] and run["ckpt"]["step"] == LM_TRAIN_STEPS,
+              f"{label} train: the checkpoint restored unequal "
+              f"{run['ckpt']}")
+    return run
+
+
+def train_repeat(torch):
+    """Two runs of LM_TRAIN_REPEAT_STEPS steps of the internlm2 cut from one
+    seed under `fl.client.deterministic_algorithms` (PyTorch's
+    deterministic mode, as `fl.local_train` trains): their losses bit for
+    bit, or the mode's refusal of the first op that has no deterministic
+    implementation, recorded. Every other error is raised."""
+    from repro_torch.fl.client import deterministic_algorithms
+    from repro_torch.launch import train
+
+    cfg = train_config(LM_DENSE)
+    runs, error = [], None
+    try:
+        with deterministic_algorithms():
+            for _ in range(2):
+                torch.cuda.empty_cache()
+                runs.append(train.main(train_argv(LM_TRAIN_REPEAT_STEPS),
+                                       cfg=cfg))
+    except RuntimeError as e:
+        # only the deterministic mode's own refusal names a breaking op;
+        # any other error (out of memory, a failed launch) fails the phase
+        if not any(m in str(e) for m in DETERMINISM_ERRORS):
+            raise
+        error = str(e).splitlines()[0][:300]
+    torch.cuda.empty_cache()
+    rec = dict(steps=LM_TRAIN_REPEAT_STEPS, losses=runs,
+               bitwise=len(runs) == 2 and runs[0] == runs[1], breaks=error)
+    record("lm_train_repeat", **rec)
+    check(error is not None or rec["bitwise"],
+          f"lm_train: two deterministic runs differ: {runs}")
+    return rec
+
+
+def fn_gap(torch, a, b):
+    """max |a - b| / max |b| (b's scale floored at the smallest normal)."""
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-30)
+
+
+def fn_vs_plain(torch, label, fn, plain, inputs, tol):
+    """A kernel Function (kernel forward, the training formulation's
+    backward) against autograd straight through the plain version, on the
+    card and the same inputs and cotangent: the output and each input's
+    gradient, each relative to the plain one's largest magnitude."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    res = []
+    for f in (fn, plain):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = f(*xs)
+        out = out[0] if isinstance(out, tuple) else out
+        if not res:
+            co = torch.randn(out.shape, generator=gen, device="cuda").to(
+                out.dtype)
+        res.append((out.detach(), torch.autograd.grad(out, xs, co)))
+        del xs, out
+    (o1, g1), (o2, g2) = res
+    gaps = [fn_gap(torch, o1, o2)] + [fn_gap(torch, a, b)
+                                      for a, b in zip(g1, g2)]
+    row = dict(case=label, output_gap=gaps[0], grad_gaps=gaps[1:], tol=tol)
+    check(all(math.isfinite(x) and x <= tol for x in gaps),
+          f"lm_train function {label}: gaps {gaps} (tol {tol:g})")
+    return row
+
+
+def train_functions(torch):
+    """Each LM kernel's Function against autograd through its plain
+    version on the card: flash in bf16 and float32, causal and windowed,
+    GQA 6:1 at (B, H, KV, S, hd) = (1, 48, 8, 512, 128), a ragged S and
+    the training runs' S of 2048 (four 512-query chunks of the backward's
+    formulation, three with a causal offset); rwkv6 at (2, 300, 32, 64)
+    and the training run's (1, 2048, 32, 64), chunk 64 (32 chunks: four
+    groups of `_wkv_chunked` joined); mamba at (2, 300, 1024, 16) with
+    the ssm chunk 256, float32."""
+    import functools
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+
+    saved = {w: saved_counts(w) for w in (fa.flash_attention,
+                                          rw.rwkv6_scan, ms.mamba_scan)}
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for S in (512, 300, LM_TRAIN_SEQ):
+            for window in (None, 128):
+                xs = flash_inputs(torch, 1, 48, 8, S, S, 128, 128,
+                                  getattr(torch, dtype))
+                kw = dict(causal=True, window=window, scale=128 ** -0.5)
+                rows.append(fn_vs_plain(
+                    torch, f"flash {dtype} S={S} window={window}",
+                    lambda q, k, v: kops.flash_attention(
+                        q, k, v, backward=attn._chunked_attn_heads_first,
+                        **kw),
+                    lambda q, k, v: fa.flash_attention_ref(q, k, v, **kw),
+                    xs, TRAIN_FN_TOL[dtype]))
+    for B, T in ((2, 300), (1, LM_TRAIN_SEQ)):
+        xs = rwkv_inputs(torch, B, T, 32, 64)
+        rows.append(fn_vs_plain(
+            torch, f"rwkv6 float32 ({B},{T},32,64) chunk 64",
+            lambda *a: kops.rwkv6_scan(*a, chunk=64,
+                                       backward=ssm._wkv_chunked),
+            lambda *a: rw.rwkv6_scan_ref(*a, chunk=64), xs,
+            TRAIN_FN_TOL["float32"]))
+    xs = mamba_inputs(torch, 2, 300, 1024, 16)
+    rows.append(fn_vs_plain(
+        torch, "mamba float32 (2,300,1024,16) chunk 256",
+        lambda *a: kops.mamba_scan(*a, backward=functools.partial(
+            ssm._ssm_chunked, chunk=256)),
+        ms.mamba_scan_ref, xs, TRAIN_FN_TOL["float32"]))
+    for w, s in saved.items():
+        restore_counts(w, s)
+    torch.cuda.empty_cache()
+    record("lm_train_functions", cases=rows)
+    return rows
+
+
+def train_card_vs_cpu(torch):
+    """One reduced float32 train step (AdamW lr 1e-3, clip 1.0) on the
+    card and on the CPU from the same weights and batch: loss and
+    grad_norm to LM_TRAIN_CARD_CPU_TOL, every parameter to it wherever
+    the CPU's gradient exceeds 1e-6 in size, elsewhere within 2 lr (a
+    first Adam step moves a weight by about lr whatever its gradient's
+    size), those entries counted."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import AdamW
+
+    lr, rows = 1e-3, []
+    for arch, kw in ((LM_DENSE, dict(kv_heads=2)), (LM_RWKV, {}),
+                     (LM_HYBRID, dict(kv_heads=2)), (LM_MLA, {})):
+        cfg = get_config(arch).reduced().replace(dtype="float32", **kw)
+        base = init_model(cfg, LM_SEED, "cpu")
+        g = torch.Generator().manual_seed(21)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=g)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(base).to(dev)
+            step, opt = make_train_step(cfg, AdamW(lr=lr))
+            grads = {}
+            before = kops.launch_counts()
+            model, _, m = step(model, opt.init(dict(model.named_parameters())),
+                               {"tokens": toks.to(dev)}, grads)
+            after = kops.launch_counts()
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        {n: p.detach().cpu()
+                         for n, p in model.named_parameters()},
+                        {n: x.detach().cpu() for n, x in grads.items()},
+                        {k: after[k] - before[k] for k in after})
+        (l0, n0, p0, g0, k0), (l1, n1, p1, g1, k1) = out["cpu"], out["cuda"]
+        worst, flipped, total, over = 0.0, 0, 0, 0.0
+        for name, ref in p0.items():
+            gap = (p1[name] - ref).abs()
+            big = g0[name].abs() > 1e-6
+            scaled = gap / (1 + ref.abs())
+            worst = max(worst, float(scaled[big].max()) if big.any() else 0.0)
+            over = max(over, float(gap.max()))
+            flipped += int((scaled[~big] > LM_TRAIN_CARD_CPU_TOL).sum())
+            total += gap.numel()
+        row = dict(arch=arch, reduced=True, dtype="float32",
+                   loss_cpu=l0, loss_card=l1, grad_norm_cpu=n0,
+                   grad_norm_card=n1, param_gap=worst, param_gap_any=over,
+                   small_grad_entries_apart=flipped, entries=total,
+                   card_launches=k1, cpu_launches=k0,
+                   tol=LM_TRAIN_CARD_CPU_TOL)
+        rows.append(row)
+        want = train_launches(cfg)
+        check(abs(l1 - l0) <= LM_TRAIN_CARD_CPU_TOL * abs(l0)
+              and abs(n1 - n0) <= LM_TRAIN_CARD_CPU_TOL * abs(n0)
+              and worst <= LM_TRAIN_CARD_CPU_TOL
+              and over <= 2 * lr * (1 + 1e-3) + LM_TRAIN_CARD_CPU_TOL
+              and flipped <= 1e-3 * total and k1 == want
+              and not any(k0.values()),
+              f"{arch} reduced train step card vs CPU: {row} (want "
+              f"launches {want})")
+    record("lm_train_card_vs_cpu", cases=rows)
+    return rows
+
+
+def phase_lm_train(torch):
+    """LM training: the Functions against the plain versions, a reduced
+    train step card vs CPU, the two full-width runs through
+    launch.train.main (bf16, internlm2's with a checkpoint round trip), and
+    two deterministic runs of the internlm2 cut."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_functions(torch)
+    train_card_vs_cpu(torch)
+    runs = {label: train_run(torch, label) for label in (LM_DENSE, LM_RWKV)}
+    train_repeat(torch)
+    return runs
 
 
 # each kernel: its source in csrc/, the phase that holds it against its

@@ -6,10 +6,13 @@ query heads, KV key/value heads (H % KV == 0), head_dim hd; RoPE is
 applied before caching, so a ring buffer stays valid whatever its slot
 order; softmax in float32.
 
-Full-sequence attention (prefill, the encoder, cross-attention over an
-encoder output, MLA's prefill) goes through `kernels.ops.flash_attention`
-(the CUDA kernel on the card, its plain version on the CPU), where the
-reference runs its XLA path `_chunked_attn`. Decode (one token per call),
+Full-sequence attention (train, prefill, the encoder, cross-attention
+over an encoder output, MLA's train and prefill) goes through
+`kernels.ops.flash_attention` (the CUDA kernel on the card, its plain
+version on the CPU), where the reference runs its XLA path
+`_chunked_attn`. Its gradient is taken through the port of that path
+(`_chunked_attn`: query chunks of 512, each recomputed in the backward).
+Decode (one token per call),
 attention over precomputed cross K/V and the int8 cache's dequantized
 keys go through the plain `_grouped_attn`, as in the reference. The caches
 are updated in place.
@@ -20,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import apply_rope, normal
@@ -226,14 +230,61 @@ def _grouped_attn(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
     return out.reshape(B, S, H, out.shape[-1])
 
 
+def _attn_chunk(qi: Tensor, kh: Tensor, vh: Tensor, q0: int, causal: bool,
+                window: Optional[int], scale: float) -> Tensor:
+    """One query chunk of `_chunked_attn`: qi (B,c,H,hd) at positions q0..,
+    kh/vh (B,T,H,*) -> (B,c,H,vd)."""
+    scores = torch.einsum("bchd,bthd->bhct", qi, kh).float() * scale
+    if causal:
+        qpos = q0 + torch.arange(qi.shape[1], device=qi.device)[:, None]
+        kpos = torch.arange(kh.shape[1], device=qi.device)[None, :]
+        ok = kpos <= qpos
+        if window is not None:
+            ok = ok & (kpos > qpos - window)
+        scores = torch.where(ok, scores,
+                             torch.full((), NEG_INF, device=qi.device))
+    probs = torch.softmax(scores, dim=-1).to(vh.dtype)
+    return torch.einsum("bhct,bthd->bchd", probs, vh)
+
+
+def _chunked_attn(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                  window: Optional[int], scale: float,
+                  chunk: int = 512) -> Tensor:
+    """The reference's train/prefill attention (`_chunked_attn`): KV heads
+    broadcast to H, queries in chunks of `chunk`, each chunk's scores in
+    float32 and its probabilities cast to v's dtype; each chunk is
+    checkpointed, so a backward recomputes one chunk's scores at a time
+    (the reference's `jax.checkpoint` per chunk). q (B,S,H,hd), k/v
+    (B,T,KV,*) -> (B,S,H,vd). The flash kernel's gradient is taken through
+    it; the last chunk is short instead of padded."""
+    S, H = q.shape[1], q.shape[2]
+    G = H // k.shape[2]
+    kh = k.repeat_interleave(G, dim=2)
+    vh = v.repeat_interleave(G, dim=2)
+    c = min(chunk, S)
+    return torch.cat([checkpoint(_attn_chunk, q[:, q0:q0 + c], kh, vh, q0,
+                                 causal, window, scale, use_reentrant=False)
+                      for q0 in range(0, S, c)], dim=1)
+
+
+def _chunked_attn_heads_first(q: Tensor, k: Tensor, v: Tensor, *,
+                              causal: bool, window: Optional[int],
+                              scale: float) -> Tensor:
+    """`_chunked_attn` on the kernel's layout (B, heads, S, *)."""
+    return _chunked_attn(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal, window=window,
+                         scale=scale).transpose(1, 2)
+
+
 def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
            window: Optional[int], scale: float) -> Tensor:
     """The flash kernel on the model's layout: q (B,S,H,hd), k/v
-    (B,T,KV,*) -> (B,S,H,vd)."""
+    (B,T,KV,*) -> (B,S,H,vd), differentiable through `_chunked_attn`."""
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
                                window=window if causal else None,
-                               scale=scale)
+                               scale=scale,
+                               backward=_chunked_attn_heads_first)
     return out.transpose(1, 2)
 
 

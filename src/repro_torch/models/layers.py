@@ -114,3 +114,16 @@ def lm_logits(embed: Embed, head: Optional[LMHead], x: Tensor) -> Tensor:
     """Logits in float32: the tied embedding unless an untied head exists."""
     w = head.w if head is not None else embed.tokens.t()
     return torch.matmul(x, w).float()
+
+
+def softmax_xent(logits: Tensor, labels: Tensor,
+                 mask: Optional[Tensor] = None) -> Tensor:
+    """Mean next-token cross entropy; logits (..., V) float32, labels
+    (...) int64. With `mask`, the mean over the masked positions: the sum
+    of -log p there over max(sum(mask), 1)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels[..., None])[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.to(ll.dtype)
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -1,11 +1,16 @@
 """State-space / linear-recurrence mixers: Mamba (selective scan, for Jamba)
 and RWKV6 "Finch" (WKV with data-dependent decay).
 
-Port of `repro/models/ssm.py`. Both prefills go through a kernel that also
-returns the final state for the decode cache: Mamba's selective scan
+Port of `repro/models/ssm.py`. Train and prefill go through a kernel that
+also returns the final state for the decode cache: Mamba's selective scan
 through `kernels.ops.mamba_scan`, RWKV6's chunked WKV through
 `kernels.ops.rwkv6_scan` (the CUDA kernels on the card, their plain
-versions on the CPU). Decode is the single-step recurrence in plain torch.
+versions on the CPU). Their gradients are taken through the reference's
+training formulations, ported here: `_ssm_chunked` (the in-chunk
+associative scan of `_ssm_chunk`, chunk `ssm_chunk`) and `_wkv_chunked`
+(`_wkv_chunk` per chunk of `rwkv_chunk`, its state-independent terms
+for several chunks at once). Decode is the single-step recurrence in plain
+torch.
 
 Mamba: the reference scans chunk by chunk, carrying the causal conv's tail
 and the state; the port computes the causal depthwise conv over the whole
@@ -21,11 +26,13 @@ bfloat16 whatever the model's dtype, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import const, normal
@@ -89,12 +96,54 @@ def _dt_bc(p: Mamba, xc: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     return dt, Bt, Ct
 
 
+def _assoc_scan(la: Tensor, u: Tensor) -> Tensor:
+    """Inclusive scan over axis 1 of the reference's `comb`, (a1, b1) then
+    (a2, b2) -> (a1 + a2, exp(a2) b1 + b2), in log2(L) doubling steps
+    (Hillis-Steele; the reference's `jax.lax.associative_scan` is another
+    log-depth order of the same combine). Returns the b part."""
+    a, b = la, u
+    d, L = 1, la.shape[1]
+    while d < L:
+        b = torch.cat([b[:, :d], torch.exp(a[:, d:]) * b[:, :-d] + b[:, d:]],
+                      dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] + a[:, d:]], dim=1)
+        d *= 2
+    return b
+
+
+def _ssm_chunk(h0: Tensor, dt: Tensor, A: Tensor, Bt: Tensor, Ct: Tensor,
+               x: Tensor) -> Tuple[Tensor, Tensor]:
+    """The reference's in-chunk parallel selective scan (`_ssm_chunk`): h0
+    (B,Di,N); dt, x (B,L,Di); A (Di,N); Bt, Ct (B,L,N) -> (y (B,L,Di),
+    h_L). Every decay factor is exp of a sum of dt A <= 0."""
+    la = dt[..., None] * A                                  # (B,L,Di,N)
+    u = dt[..., None] * Bt[:, :, None, :] * x[..., None]
+    h = torch.exp(torch.cumsum(la, dim=1)) * h0[:, None] + _assoc_scan(la, u)
+    return torch.einsum("bldn,bln->bld", h, Ct), h[:, -1]
+
+
+def _ssm_chunked(dt: Tensor, A: Tensor, Bt: Tensor, Ct: Tensor, x: Tensor,
+                 *, chunk: int) -> Tuple[Tensor, Tensor]:
+    """`_ssm_chunk` over the sequence in chunks of `chunk` (the last may be
+    short), the state carried from a zero one: the Mamba scan's training
+    formulation, which `mamba_scan`'s gradient is taken through. Same
+    signature and result as `kernels.ops.mamba_scan`."""
+    h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]),
+                    dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, x.shape[1], chunk):
+        dtc, Bc, Cc, xc = (t[:, c0:c0 + chunk] for t in (dt, Bt, Ct, x))
+        y, h = _ssm_chunk(h, dtc, A, Bc, Cc, xc)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
 def mamba(p: Mamba, x: Tensor, *, mode: str = "train",
-          cache: Optional[MambaCache] = None
+          cache: Optional[MambaCache] = None, chunk: int = 256
           ) -> Tuple[Tensor, Optional[MambaCache]]:
     """x (B, S, D) -> (out (B, S, D), cache'). "decode" takes S == 1 and a
     cache; "prefill" with a cache returns the filled one (any S); "train"
-    returns None."""
+    returns None. `chunk` is the training formulation's (`_ssm_chunked`)."""
     B, S, D = x.shape
     A = -torch.exp(p.a_log)                                 # (Di, N)
     Kc = p.conv_w.shape[0]
@@ -128,7 +177,9 @@ def mamba(p: Mamba, x: Tensor, *, mode: str = "train",
     xconv = silu(xconv + p.conv_b)
     dt, Bt, Ct = _dt_bc(p, xconv)
     xf = xconv.float()
-    y, h_end = kops.mamba_scan(dt, A, Bt, Ct, xf)
+    y, h_end = kops.mamba_scan(
+        dt, A, Bt, Ct, xf,
+        backward=functools.partial(_ssm_chunked, chunk=chunk))
     y = (y + p.d * xf).to(x.dtype)
     out = torch.matmul(y * silu(z), p.out_proj)
     new_cache = None
@@ -235,6 +286,61 @@ def _proj(x: Tensor, w: Tensor) -> Tensor:
     return torch.matmul(x, w.reshape(D, H * K)).unflatten(-1, (H, K))
 
 
+def _wkv_intra(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The state-independent terms of the reference's `_wkv_chunk` for a
+    stack of chunks: r, k, v, logw (B, n, L, H, K), u (H, K) -> (the
+    in-chunk pairs' and the u bonus's output (B, n, L, H, K), each chunk's
+    r exp(clw') (B, n, L, H, K), its own state increment
+    sum_tau exp(clw_L - clw_tau) k_tau v_tau^T (B, n, H, K, K) and its
+    decay exp(clw_L) (B, n, H, K)), every in-chunk decay factor
+    exp(clw'_t - clw_tau) <= 1."""
+    Lc = r.shape[2]
+    clw = torch.cumsum(logw, dim=2)                         # inclusive
+    clw_prev = clw - logw                                   # exclusive
+    decay = clw_prev[:, :, :, None] - clw[:, :, None]       # (B,n,t,tau,H,K)
+    idx = torch.arange(Lc, device=r.device)
+    mask = (idx[:, None] > idx[None, :])[None, None, :, :, None, None]
+    fac = torch.exp(torch.where(mask, decay,
+                                torch.full((), -torch.inf, device=r.device)))
+    att = torch.einsum("bnlhk,bnlthk,bnthk->bnlth", r, fac, k)
+    o = torch.einsum("bnlth,bnthv->bnlhv", att, v)
+    o = o + torch.einsum("bnlhk,bnlhk,bnlhv->bnlhv", r, u * k, v)
+    inc = torch.einsum("bnlhk,bnlhv->bnhkv",
+                       torch.exp(clw[:, :, -1:] - clw) * k, v)
+    return o, r * torch.exp(clw_prev), inc, torch.exp(clw[:, :, -1])
+
+
+def _wkv_chunked(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
+                 *, chunk: int, group: int = 8) -> Tuple[Tensor, Tensor]:
+    """RWKV6's training formulation, which `rwkv6_scan`'s gradient is taken
+    through: the reference's `_wkv_chunk` over the sequence in chunks of
+    `chunk` from a zero state, the tail padded with r = k = v = 0, log w
+    = 0 (as the reference pads). Per chunk, o = r exp(clw') . S0 + the
+    in-chunk pairs + the u bonus, and S_L = exp(clw_L) S0 + the chunk's
+    increment. Everything but the (K, V) state is independent of S0, so
+    `_wkv_intra` forms it for `group` chunks at once (checkpointed: a
+    backward holds one group's (B, group, L, L, H, K) decays at a time)
+    and only the state is carried chunk to chunk. Same signature and
+    result as `kernels.ops.rwkv6_scan`."""
+    B, T, H, K = r.shape
+    pad = (-T) % chunk
+    n = (T + pad) // chunk
+    r, k, v, logw = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                     .reshape(B, n, chunk, H, K) for t in (r, k, v, logw))
+    parts = [checkpoint(_wkv_intra, *(t[:, g0:g0 + group]
+                                      for t in (r, k, v, logw)), u,
+                        use_reentrant=False) for g0 in range(0, n, group)]
+    o_in, r_dec, inc, w_end = (torch.cat(x, dim=1) for x in zip(*parts))
+    S = torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+    outs = []
+    for c in range(n):
+        outs.append(torch.einsum("blhk,bhkv->blhv", r_dec[:, c], S))
+        S = w_end[:, c][..., None] * S + inc[:, c]
+    o = o_in + torch.stack(outs, dim=1)
+    return o.reshape(B, n * chunk, H, K)[:, :T], S
+
+
 def rwkv_time_mix(p: dict, x: Tensor, *, n_heads: int, head_dim: int,
                   mode: str = "train", cache: Optional[RWKVCache] = None,
                   chunk: int = 64) -> Tuple[Tensor, Tensor, Tensor]:
@@ -269,7 +375,8 @@ def rwkv_time_mix(p: dict, x: Tensor, *, n_heads: int, head_dim: int,
             + torch.einsum("bhk,bhv->bhkv", k[:, 0], v[:, 0])
         o = o[:, None]
     else:
-        o, S1 = kops.rwkv6_scan(r, k, v, logw, p["u"].float(), chunk=chunk)
+        o, S1 = kops.rwkv6_scan(r, k, v, logw, p["u"].float(), chunk=chunk,
+                                backward=_wkv_chunked)
     out = (o * torch.nn.functional.silu(g).float()).to(x.dtype)
     H_, K_, Dm = p["o_proj"].shape
     out = torch.matmul(out.reshape(B, S, H_ * K_), p["o_proj"].reshape(

@@ -1,4 +1,4 @@
-"""The model stack for serving: embedding, layer periods, encoder, head.
+"""The model stack: embedding, layer periods, encoder, head.
 
 Port of `repro/models/transformer.py` for every layer kind: `attn` (GQA
 or MLA self-attention + SwiGLU MLP), `attn_moe` (the same with a MoE in
@@ -15,21 +15,30 @@ Python. Parameter names mirror the JAX leaves: `layers.3.s0_attn.attn.wq`
 is `params["layers"]["s0_attn"]["attn"]["wq"][3]`, `encoder.5.attn.wq` is
 `params["encoder"]["attn"]["wq"][5]`.
 
-Modes: "prefill" (full sequence, fills the decode cache; the flash,
-mamba and rwkv6 kernels run here, and the encoder when frames are given)
-and "decode" (one token per call against the cache, plain torch, except
-the encoder and the cross-attention over its output when frames are
-passed to every step, as the reference's default decode does).
+Modes: "train" (full sequence, returns logits and the MoE aux loss; the
+flash, mamba and rwkv6 kernels run forward, their gradients are taken
+through the reference's training formulations, and with `cfg.remat` each
+period is checkpointed: recomputed in the backward, every kernel of it
+included), "prefill" (the same forward, no gradient; fills the decode
+cache) and "decode" (one token per call against the cache, plain torch,
+except the encoder and the cross-attention over its output when frames
+are passed to every step, as the reference's default decode does).
 Encoder-decoder requests can instead run the encoder once at admission
-(`prepare_cross_cache`) and decode against cached cross K/V.
+(`prepare_cross_cache`) and decode against cached cross K/V. `lm_loss` is
+the training loss; `param_tree` gives the parameters (or any tensors
+named like them, such as an optimizer's moments) in the reference's tree
+layout, stacked over periods.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from ..core.types import resolve_device
@@ -37,7 +46,7 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (MLP, Embed, LMHead, RMSNorm, apply_mlp, embed_tokens,
-                     lm_logits, rms_norm)
+                     lm_logits, rms_norm, softmax_xent)
 
 Tensor = torch.Tensor
 Cache = List[Dict[str, object]]
@@ -228,7 +237,8 @@ def _sublayer(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor, *,
 
     if kind in ("mamba", "mamba_moe"):
         h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
-        o, new_c = ssm_lib.mamba(p.mamba, h, mode=mode, cache=cache)
+        o, new_c = ssm_lib.mamba(p.mamba, h, mode=mode, cache=cache,
+                                 chunk=cfg.ssm_chunk)
         x, aux = _ffn(kind, p, cfg, x + o)
         return x, new_c, aux
 
@@ -277,6 +287,54 @@ def _encoder_forward(model: Model, cfg: ModelConfig, frames: Tensor
     return rms_norm(x, model.enc_final_norm.scale, cfg.norm_eps)
 
 
+# matrix products without batch dimensions, the outputs that remat policy
+# "dots" keeps (the reference's dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _period(period: nn.ModuleDict, cfg: ModelConfig, x: Tensor,
+            aux: Tensor, *, mode: str, cache: Optional[Dict[str, object]],
+            pos, enc_out: Optional[Tensor]
+            ) -> Tuple[Tensor, Tensor, Dict[str, object]]:
+    """One period's sublayers in order, carrying (x, the aux loss so far),
+    as the reference's scan body does: (x, aux, its new cache)."""
+    new_cs = {}
+    for nm, p in period.items():
+        kind = nm.split("_", 1)[1]
+        c_in = cache[nm] if cache is not None else None
+        x, c_out, a = _sublayer(kind, p, cfg, x, mode=mode, cache=c_in,
+                                pos=pos, enc_out=enc_out)
+        if a is not None:
+            aux = aux + a
+        new_cs[nm] = c_out if c_out is not None else c_in
+    return x, aux, new_cs
+
+
+def _remat_period(period: nn.ModuleDict, cfg: ModelConfig, x: Tensor,
+                  aux: Tensor, enc_out: Optional[Tensor]
+                  ) -> Tuple[Tensor, Tensor]:
+    """A train-mode period under `torch.utils.checkpoint` (non-reentrant):
+    its activations are recomputed in the backward ("full"), or all but
+    the matrix products' outputs ("dots")."""
+    def run(x, aux):
+        x, aux, _ = _period(period, cfg, x, aux, mode="train", cache=None,
+                            pos=None, enc_out=enc_out)
+        return x, aux
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return checkpoint(run, x, aux, use_reentrant=False, **kw)
+
+
 def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
                   *, mode: str = "prefill", cache: Optional[Cache] = None,
                   pos: Union[int, Tensor, None] = None
@@ -288,7 +346,8 @@ def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
     encoder output) or "frame_embeds" (B, encoder_ctx, D) for an encoder
     config, and "patch_embeds" (B, n_patches, D) for a VLM, put before the
     token embeddings except in decode (the logits then cover patches and
-    tokens)."""
+    tokens). In "train" mode with `cfg.remat`, each period runs under a
+    checkpoint (`cfg.remat_policy`)."""
     x = embed_tokens(model.embed, batch["tokens"]).to(cfg.torch_dtype)
     enc_out = batch.get("enc_out")
     if enc_out is None and cfg.encoder_layers and "frame_embeds" in batch:
@@ -297,21 +356,69 @@ def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
         x = torch.cat([batch["patch_embeds"].to(cfg.torch_dtype), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if cache is not None else None
+    remat = mode == "train" and cfg.remat and cache is None
     for i, period in enumerate(model.layers):
-        new_cs = {}
-        for nm, p in period.items():
-            kind = nm.split("_", 1)[1]
-            c_in = cache[i][nm] if cache is not None else None
-            x, c_out, a = _sublayer(kind, p, cfg, x, mode=mode, cache=c_in,
-                                    pos=pos, enc_out=enc_out)
-            if a is not None:
-                aux = aux + a
-            new_cs[nm] = c_out if c_out is not None else c_in
+        if remat:
+            x, aux = _remat_period(period, cfg, x, aux, enc_out)
+            continue
+        x, aux, new_cs = _period(period, cfg, x, aux, mode=mode,
+                                 cache=cache[i] if cache is not None
+                                 else None, pos=pos, enc_out=enc_out)
         if new_cache is not None:
             new_cache.append(new_cs)
     x = rms_norm(x, model.final_norm.scale, cfg.norm_eps)
     logits = lm_logits(model.embed, model.lm_head, x)
     return logits, aux, new_cache
+
+
+def lm_loss(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
+            aux_weight: float = 0.01) -> Tensor:
+    """Next-token cross entropy of a "train" forward plus aux_weight times
+    the MoE aux loss. Labels are the tokens rolled left by one, the last
+    position masked; with patch_embeds the logits of the patch positions
+    are dropped."""
+    logits, aux, _ = model_forward(model, cfg, batch, mode="train")
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    mask[:, -1] = 0.0
+    if cfg.n_patches and "patch_embeds" in batch:
+        logits = logits[:, cfg.n_patches:]
+    return softmax_xent(logits, labels, mask) + aux_weight * aux
+
+
+# the parameter groups the reference stacks over layers on axis 0
+STACKED = ("layers", "encoder")
+
+
+def param_tree(model: Model, values: Optional[Mapping[str, Tensor]] = None
+               ) -> dict:
+    """The model's parameters, or `values` (tensors keyed and shaped like
+    them, e.g. gradients or optimizer moments), in the reference's tree
+    layout: nested dicts keyed by the dotted name's parts, with every leaf
+    of "layers" (periods) and "encoder" (encoder layers) stacked on a new
+    axis 0. The inverse of `interop.model_params_from_numpy`."""
+    if values is None:
+        values = {n: p.detach() for n, p in model.named_parameters()}
+    tree: dict = {}
+    stacks: Dict[Tuple[str, ...], List[Tuple[int, Tensor]]] = {}
+    for name, t in values.items():
+        parts = name.split(".")
+        if parts[0] in STACKED:
+            stacks.setdefault((parts[0], *parts[2:]), []).append(
+                (int(parts[1]), t))
+        else:
+            _put(tree, parts, t)
+    for path, items in stacks.items():
+        _put(tree, path, torch.stack([t for _, t in sorted(
+            items, key=lambda it: it[0])]))
+    return tree
+
+
+def _put(tree: dict, path, leaf):
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = leaf
 
 
 @torch.no_grad()

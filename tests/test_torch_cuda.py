@@ -1005,3 +1005,166 @@ def test_local_train_twice_on_the_card_is_bit_identical(cuda):
                 assert torch.equal(a[layer][leaf], b[layer][leaf]), \
                     (res, layer, leaf)
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+# ---------------------------------------------------------------------------
+# training: the LM kernels' Functions and a reduced train step
+# ---------------------------------------------------------------------------
+
+def function_gaps(fn, plain, inputs):
+    """(output gap, [input gradient gaps]) of a kernels.ops Function (the
+    kernel forward, the training formulation's backward) against autograd
+    through the plain version, each relative to the plain one's largest
+    magnitude, on one random cotangent."""
+    gen = torch.Generator(device=inputs[0].device).manual_seed(3)
+    res = []
+    for f in (fn, plain):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = f(*xs)
+        out = out[0] if isinstance(out, tuple) else out
+        if not res:
+            co = torch.randn(out.shape, generator=gen,
+                             device=out.device).to(out.dtype)
+        res.append((out.detach(), torch.autograd.grad(out, xs, co)))
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max()) / float(
+            b.float().abs().max())
+
+    (o1, g1), (o2, g2) = res
+    return gap(o1, o2), [gap(a, b) for a, b in zip(g1, g2)]
+
+
+# bf16 rounds the formulation's scores and probabilities (and the kernel's
+# P) where the plain version keeps float32; float32 sums in other orders
+TRAIN_FN_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S, window", [(512, None), (300, 128), (77, None),
+                                       (2048, None), (2048, 128)])
+def test_flash_function_gradients_match_plain_on_the_card(cuda, dtype, S,
+                                                          window):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import _chunked_attn_heads_first
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((1, 12, S, 128), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((1, 2, S, 128), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, 2, S, 128), generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=True, window=window, scale=128 ** -0.5)
+    before = fa.flash_attention.launches
+    out_gap, grad_gaps = function_gaps(
+        lambda *a: kops.flash_attention(
+            *a, backward=_chunked_attn_heads_first, **kw),
+        lambda *a: fa.flash_attention_ref(*a, **kw), (q, k, v))
+    assert fa.flash_attention.launches == before + 1   # the forward only
+    assert max([out_gap, *grad_gaps]) <= TRAIN_FN_TOL[dtype], \
+        (out_gap, grad_gaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, chunk", [(300, 64), (77, 16), (300, 16),
+                                      (2048, 64)])
+def test_rwkv6_function_gradients_match_plain_on_the_card(cuda, T, chunk):
+    """(300, 16) and (2048, 64) run 19 and 32 chunks: more than the 8 that
+    `_wkv_chunked` forms at once, so its groups are joined."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.models.ssm import _wkv_chunked
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    r, k, v = (torch.randn((2, T, 4, 64), generator=gen, device=cuda) * 0.5
+               for _ in range(3))
+    logw = -torch.exp(torch.randn((2, T, 4, 64), generator=gen,
+                                  device=cuda) * 0.5 - 0.5)
+    u = torch.randn((4, 64), generator=gen, device=cuda) * 0.3
+    before = rw.rwkv6_scan.launches
+    out_gap, grad_gaps = function_gaps(
+        lambda *a: kops.rwkv6_scan(*a, chunk=chunk, backward=_wkv_chunked),
+        lambda *a: rw.rwkv6_scan_ref(*a, chunk=chunk), (r, k, v, logw, u))
+    assert rw.rwkv6_scan.launches == before + 1
+    assert max([out_gap, *grad_gaps]) <= TRAIN_FN_TOL[torch.float32], \
+        (out_gap, grad_gaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, chunk", [(300, 256), (50, 16)])
+def test_mamba_function_gradients_match_plain_on_the_card(cuda, T, chunk):
+    import functools
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.ssm import _ssm_chunked
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    D, N = 256, 16
+    dt = torch.nn.functional.softplus(
+        torch.randn((2, T, D), generator=gen, device=cuda) - 1)
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=cuda).expand(D, N).contiguous()
+    Bt, Ct = (torch.randn((2, T, N), generator=gen, device=cuda) * 0.5
+              for _ in range(2))
+    x = torch.randn((2, T, D), generator=gen, device=cuda)
+    before = ms.mamba_scan.launches
+    out_gap, grad_gaps = function_gaps(
+        lambda *a: kops.mamba_scan(*a, backward=functools.partial(
+            _ssm_chunked, chunk=chunk)),
+        ms.mamba_scan_ref, (dt, A, Bt, Ct, x))
+    assert ms.mamba_scan.launches == before + 1
+    assert max([out_gap, *grad_gaps]) <= TRAIN_FN_TOL[torch.float32], \
+        (out_gap, grad_gaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, kw", [("internlm2-20b", dict(kv_heads=2)),
+                                      ("rwkv6-1.6b", {}),
+                                      ("jamba-1.5-large-398b",
+                                       dict(kv_heads=2))])
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, arch, kw):
+    """One float32 train step (AdamW lr 1e-3, clip 1.0) from the same
+    weights and tokens: loss and grad_norm to 1e-4, every gradient to 1e-4
+    of its largest magnitude, with TF32 off."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(arch).reduced().replace(dtype="float32", **kw)
+    base = init_model(cfg, 0, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(5))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            model = copy.deepcopy(base).to(dev)
+            step, opt = make_train_step(cfg, AdamW(lr=1e-3))
+            grads = {}
+            before = kops.launch_counts()
+            _, _, m = step(model, opt.init(dict(model.named_parameters())),
+                           {"tokens": toks.to(dev)}, grads)
+            launched = sum(n - before[k]
+                           for k, n in kops.launch_counts().items())
+            out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                             {n: g.cpu() for n, g in grads.items()},
+                             launched)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (l0, n0, g0, k0), (l1, n1, g1, k1) = out["cpu"], out[str(cuda)]
+    # one kernel launch a layer on the card (remat is off reduced), none on
+    # the CPU
+    assert k0 == 0 and k1 == cfg.n_periods * sum(
+        kind in ("attn", "attn_moe", "rwkv", "mamba", "mamba_moe")
+        for kind in cfg.block_pattern)
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    assert abs(n1 - n0) <= 1e-4 * abs(n0)
+    for name, g in g0.items():
+        assert float((g1[name] - g).abs().max()) <= \
+            1e-4 * float(g.abs().max()) + 1e-12, name

@@ -22,10 +22,12 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.baselines, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, repro_torch.configs, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
-            "repro_torch.launch.steps, repro_torch.diff, "
-            "repro_torch.dynamics, repro_torch.region; "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.diff, repro_torch.dynamics, repro_torch.region; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro', 'triton')); print(bad); "
+            "('jax', 'jaxlib', 'repro', 'triton', 'msgpack')); "
+            "print(bad); "
             "sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
