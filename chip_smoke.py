@@ -109,6 +109,26 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          autograd through its plain version (flash bf16 and float32,
          causal and windowed, GQA 6:1 at S 512 and 300; rwkv6 and mamba
          at S 300, float32);
+       - federated LM fine-tuning driven by the allocator
+         (`repro_torch.launch.fedavg_lm`, examples/fedavg_lm.py's flow):
+         4 clients whose c_n is internlm2-20b's FLOPs a sample
+         (`core.costmodel.arch_system`), Algorithm 2 with max_iters=4 and
+         weights (0.5, 0.5, 3e4), each client's token budget 32 x (1 +
+         its s_n's index on the menu), then 5 FedAvg rounds of 3 local
+         SGD steps (lr 0.3, batch 4) of the internlm2 cut: every
+         allocation feasible, every loss finite, each round's weights
+         the clients' float32 mean rounded to bf16, the sp1_lambda_sum
+         and flash_attention launches counted; then where a round's time
+         goes (the copies, a local step, FedAvg, the check; one local
+         step traced);
+       - the abstract pass (`repro_torch.launch.dryrun`, meta tensors, a
+         fake process group): internlm2-20b x prefill_32k on both
+         production meshes and jamba-1.5-large-398b x train_4k, each its
+         own process, exit 0 with 0 failed; the internlm2 cut's prefill
+         at 4 x 2048 abstractly on the 1 x 1 host mesh and on the card,
+         the abstract argument bytes equal to the bytes the card
+         allocates and the FLOP counts equal; the roofline's single-pod
+         table at the H100's constants;
        - FL training (`fl.simulate`) on the paper's cell (N = 50, one FL
          client each) with the client CNN at its published widths
          (configs/flmar_cnn.py), 256 frames a client, 10 rounds of 5
@@ -126,7 +146,7 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      float64 and compares them: the paper cell and 4 fleet cells (the
      default engines), an N=4096 slice of the region (Theorem 2 and
      direct), the Fig. 8 cell under three deadlines, the paper cell with
-     SP1 "bisect", with SP2 "jong" (cut to 3 BCD x 5 Algorithm-1
+     SP1 "bisect", with SP2 "jong" (cut to 2 BCD x 5 Algorithm-1
      iterations) and with the log accuracy model, and 4 fleet cells under
      per-cell deadlines; and the reduced LMs in float32 (prefill and four
      decode steps): internlm2-20b, rwkv6-1.6b, jamba-1.5-large-398b,
@@ -150,7 +170,9 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      (`ms`, the host included) and by torch.profiler's device time of its
      own kernels (`device_ms`), beside its bound, its plain version and,
      for attention, scaled_dot_product_attention (timed only), at every
-     served attention shape; rwkv6_scan also per pass; sp1_lambda_sum
+     served attention shape; the three LM kernels also through their
+     custom ops (`op_ms`, the path the models take: the dispatch's host
+     cost); rwkv6_scan also per pass; sp1_lambda_sum
      also in float64 and with the SASS instructions of its candidate loop
      (cuobjdump), one (m, n) pair a trip;
      waterfill_gprime with the Halley steps its early exit takes on the
@@ -301,9 +323,10 @@ FL_CPU_TOL = 1e-9
 FLMAR_ARGV = ["--devices", "8", "--rounds", "25", "--rho", "40",
               "--per-client", "64"]
 # Algorithm 1 runs ~100k small launches per SP2_v2 solve; the paper cell's
-# "jong" comparison is cut to 3 BCD x 5 Algorithm-1 iterations (the
-# reference's defaults are 20 x 30) to stay inside the run's time limit.
-JONG_SPEC = dict(max_iters=3, sp2_method="jong", sp2_iters=5)
+# "jong" comparison is cut to 2 BCD x 5 Algorithm-1 iterations (the
+# reference's defaults are 20 x 30) to stay inside the run's time limit
+# (3 x 5 took 46-49 s on the card and 10-12 on the CPU).
+JONG_SPEC = dict(max_iters=2, sp2_method="jong", sp2_iters=5)
 
 # The LM serving path, bf16, batch 4, random prompts, 32 greedy tokens,
 # weights from a seed: internlm2-20b, rwkv6-1.6b, minicpm3-4b (MLA) and
@@ -392,11 +415,32 @@ TRAIN_FN_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 # a reduced float32 train step, card vs CPU: loss, grad_norm and parameters
 LM_TRAIN_CARD_CPU_TOL = 1e-4
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): HBM3
-# bandwidth, the FP32 / FP64 rates outside the tensor cores, and the bf16
-# tensor-core rate.
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+# examples/fedavg_lm.py's flow (launch.fedavg_lm): the allocator on 4
+# clients whose c_n is internlm2-20b's (the whole 48-layer config's FLOPs
+# a sample), SolverSpec(max_iters=4), weights (0.5, 0.5, 3e4); 5 FedAvg
+# rounds of 3 local SGD steps (lr 0.3) at batch 4 on each client's
+# SyntheticLM stream, cut to its budget of 32-128 tokens; the model is the
+# lm_train cut (4 of 48 layers, full width, bf16). Each round's global
+# weights must be the clients' float32 mean to bf16 rounding: within half
+# a bf16 ulp, 2^-8 of the mean's magnitude, and equal to the mean rounded
+# to bf16 (the division by 4 is exact).
+FEDAVG_CLIENTS, FEDAVG_ROUNDS, FEDAVG_STEPS = 4, 5, 3
+FEDAVG_ROUND_TOL = 2.0 ** -8
+# launch.dryrun's abstract passes on the production meshes (fake process
+# group of 512 ranks, each pair its own process, the two side by side on
+# the host's CPU at the start of the dryrun phase), and the abstract pass
+# of the lm_train cut's prefill at batch 4 x 2048 on the 1 x 1 host mesh
+# held against the same prefill on the card while they run
+DRYRUN_PAIRS = (("internlm2-20b", "prefill_32k", "both"),
+                ("jamba-1.5-large-398b", "train_4k", "single"))
+DRYRUN_BATCH, DRYRUN_SEQ = 4, 2048
+DRYRUN_TIMEOUT_S = 300
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, no sparsity) outside
+# the tensor cores; the HBM3 bandwidth and the bf16 tensor-core rate are the
+# roofline's (`repro_torch.roofline`: HBM_BW, PEAK_FLOPS), read by
+# `bound_terms`.
+PEAK_OPS_S = {"float32": 67e12, "float64": 34e12}
 # exponentials on the special-function units: 16 per SM a clock (Hopper),
 # 132 SMs at the 1.98 GHz boost clock
 SFU_EXP_S = 16 * 132 * 1.98e9
@@ -462,6 +506,15 @@ WF_TOL_F64, WF_TOL_F32 = 1e-10, 1e-4
 
 class SmokeError(RuntimeError):
     pass
+
+
+def bound_terms(moved, ops, dtype):
+    """Milliseconds of `moved` bytes at the HBM peak and of `ops` at
+    `dtype`'s peak: the two terms of a kernel's bound."""
+    from repro_torch.roofline import HBM_BW, PEAK_FLOPS
+
+    peak = PEAK_FLOPS if dtype == "bfloat16" else PEAK_OPS_S[dtype]
+    return moved / HBM_BW * 1e3, ops / peak * 1e3
 
 
 def check(cond, msg):
@@ -558,10 +611,15 @@ def main():
     phase("paper_paths", phase_paper_paths)
     phase("lm_card_vs_cpu", phase_lm_card_vs_cpu)
     train_runs = phase("lm_train", phase_lm_train)
+    fedavg_run = phase("fedavg_lm", phase_fedavg_lm)
+    sp1_paths["fedavg_lm"] = fedavg_run["launches"]["sp1_lambda_sum"]
+    phase("dryrun", phase_dryrun)
     for k in kernels[2:]:
         paths = {"lm_serve": k["launches"],
                  "lm_train": sum(r["launches"][k["name"]]
                                  for r in train_runs.values())}
+        if k["name"] == "flash_attention":
+            paths["fedavg_lm"] = fedavg_run["launches"]["flash_attention"]
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     phase("kernel_times", phase_times, kernels)
@@ -2184,8 +2242,7 @@ def kernel_time(torch, kernel, plain, args, reps, plain_reps, ops, dtype,
     out = plain(*args)
     moved = sum(a.numel() * a.element_size() for a in args) \
         + out.numel() * out.element_size()
-    bytes_ms = moved / PEAK_BYTES_S * 1e3
-    ops_ms = ops / PEAK_OPS_S[dtype] * 1e3
+    bytes_ms, ops_ms = bound_terms(moved, ops, dtype)
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
@@ -2366,26 +2423,28 @@ def halley_steps(torch, args):
 
 
 def lm_kernel_time(torch, name, counter, fn, plain, library, moved, ops,
-                   dtype, reps, plain_reps, **extra):
+                   dtype, reps, plain_reps, op=None, **extra):
     """ms per launch of `fn` (CUDA events) and its device ms (`device_ms`;
     the timing launches are taken off `counter.launches`), ms of its plain
     version and of the library call, and the bound: the larger of `moved`
-    bytes at HBM peak and `ops` at `dtype`'s peak. `extra` goes into the
-    record only."""
+    bytes at HBM peak and `ops` at `dtype`'s peak. `op`, the same launch
+    through the kernel's custom op (the path the models take), is timed
+    the same way (`op_ms`; recorded, not in the kernels line). `extra` goes
+    into the record only."""
     saved = saved_counts(counter)
     ms = event_ms(torch, fn, reps)
+    op_ms = event_ms(torch, op, reps) if op else None
     dev_ms, dev_kernels = device_ms(torch, fn, reps, DEVICE_KEYS[name])
     restore_counts(counter, saved)
     plain_ms = event_ms(torch, plain, plain_reps)
     library_ms = event_ms(torch, library, reps) if library else None
-    bytes_ms = moved / PEAK_BYTES_S * 1e3
-    ops_ms = ops / PEAK_OPS_S[dtype] * 1e3
+    bytes_ms, ops_ms = bound_terms(moved, ops, dtype)
     times = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                  bound_ms=max(bytes_ms, ops_ms),
                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                  library_ms=library_ms)
-    record("kernel_times", kernel=name, dtype=dtype, **times, bytes=moved,
-           ops=ops, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+    record("kernel_times", kernel=name, dtype=dtype, **times, op_ms=op_ms,
+           bytes=moved, ops=ops, bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
            device_kernels=dev_kernels, **extra)
     return times
 
@@ -2403,6 +2462,7 @@ def flash_time(torch):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
 
     times = {}
     for name, (B, H, KV, S, T, hd, vd, causal, _) in \
@@ -2410,14 +2470,15 @@ def flash_time(torch):
         q, k, v = flash_inputs(torch, B, H, KV, S, T, hd, vd, torch.bfloat16)
         moved = sum(x.numel() * x.element_size() for x in (q, k, v)) \
             + B * H * S * vd * q.element_size()
-        pairs = S * (S + 1) // 2 if causal else S * T
-        ops = B * H * pairs * 2 * (hd + vd)
+        ops = kops.flash_attention_flops(B, H, S, T, hd, vd, causal, None)
         times[name] = lm_kernel_time(
             torch, "flash_attention", fa.flash_attention,
             lambda: fa.flash_attention(q, k, v, causal=causal),
             lambda: plain_attention(torch, fa, q, k, v, causal=causal),
             lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
-            moved, ops, "bfloat16", 20, 3, arch=name, body=fa.body(q, k, v),
+            moved, ops, "bfloat16", 20, 3,
+            op=lambda: kops.flash_attention_op(q, k, v, causal, None, None),
+            arch=name, body=fa.body(q, k, v),
             shape=[B, H, KV, S, T, hd, vd], causal=causal,
             plain_by_rows=B * H * S * T * 4 > 1e10)
         del q, k, v
@@ -2434,11 +2495,12 @@ def rwkv_time(torch):
     read once, the output and the final state written once. No PyTorch call
     computes it. ms is one call (both passes); each pass is also timed
     alone (the output pass on the states of an earlier call)."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import rwkv6_scan as rw
 
     B, T, H, K, L, _ = rwkv_cases()[-1]
     xs = rwkv_inputs(torch, B, T, H, K)
-    ops = B * T * H * (5 * K * K + 6 * K)
+    ops = kops.rwkv6_scan_flops(B, T, H, K)
     moved = sum(x.numel() * x.element_size() for x in xs) \
         + 4 * (B * T * H * K + B * H * K * K)
     bufs = rw.buffers(xs[0], L)
@@ -2453,7 +2515,8 @@ def rwkv_time(torch):
         torch, "rwkv6_scan", rw.rwkv6_scan,
         lambda: rw.rwkv6_scan(*xs, chunk=L),
         lambda: rw.rwkv6_scan_ref(*xs, chunk=L), None,
-        moved, ops, "float32", 20, 3, shape=[B, T, H, K], chunk=L,
+        moved, ops, "float32", 20, 3,
+        op=lambda: kops.rwkv6_scan_op(*xs, L), shape=[B, T, H, K], chunk=L,
         state_pass_ms=pass_ms["state"], output_pass_ms=pass_ms["output"])
 
 
@@ -2468,15 +2531,16 @@ def mamba_time(torch):
     units: recorded beside the bound, not in it. No PyTorch call computes
     the selective scan."""
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops as kops
 
     B, T, D, N, dt_max = mamba_cases()[-1]
     xs = mamba_inputs(torch, B, T, D, N, dt_max)
-    ops = 8 * B * T * D * N
+    ops = kops.mamba_scan_flops(B, T, D, N)
     moved = 4 * (3 * B * T * D + 2 * B * T * N + D * N + B * D * N)
     return lm_kernel_time(
         torch, "mamba_scan", ms.mamba_scan, lambda: ms.mamba_scan(*xs),
         lambda: ms.mamba_scan_ref(*xs), None, moved, ops, "float32", 20, 2,
-        shape=[B, T, D, N], exp_sfu_ms=B * T * D * N / SFU_EXP_S * 1e3)
+        op=lambda: kops.mamba_scan_op(*xs), shape=[B, T, D, N], exp_sfu_ms=B * T * D * N / SFU_EXP_S * 1e3)
 
 
 def trace(torch, label, problem, spec):
@@ -4335,6 +4399,305 @@ def phase_lm_train(torch):
     runs = {label: train_run(torch, label) for label in (LM_DENSE, LM_RWKV)}
     train_repeat(torch)
     return runs
+
+
+def fedavg_check(torch, gaps):
+    """on_round for launch.fedavg_lm.train_rounds: the round's global
+    weights against the clients' float32 mean, per parameter (the largest
+    gap over the mean's magnitude), appended to `gaps`."""
+    @torch.no_grad()
+    def on_round(r, model, clients):
+        worst, exact = 0.0, True
+        for name, g in model.named_parameters():
+            mean = sum(c[name].float() for c in clients) / len(clients)
+            gap = (g.float() - mean).abs()
+            worst = max(worst, float((gap / mean.abs().clamp_min(
+                1e-30)).masked_fill(gap == 0, 0).max()))
+            exact = exact and torch.equal(g, mean.to(g.dtype))
+        gaps.append(dict(round=r, max_rel_gap=worst, equal_to_rounded=exact))
+    return on_round
+
+
+def fedavg_breakdown(torch, cfg, model, budget):
+    """Where the FedAvg rounds' time goes, measured after the phase's run
+    on its trained model (the launches here are taken off the counters):
+    milliseconds (wall, the card synchronised) of loading the global
+    weights into a client's working copy, the optimizer's init, one local
+    step at `budget` tokens, the client's clone, FedAvg over
+    FEDAVG_CLIENTS clones and the phase's round check, each the mean of a
+    few repetitions after one untimed; a round's sum of them; and one
+    local step traced (the card's busy time, idle share, top kernels)."""
+    import copy
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import fedavg_lm
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import SGD
+
+    saved = saved_counts(fa.flash_attention)
+    opt = SGD(lr=0.3)
+    step, _ = make_train_step(cfg, opt)
+    work = copy.deepcopy(model)
+    state = opt.init(dict(work.named_parameters()))
+    toks = next(iter(SyntheticLM(cfg.vocab_size, fedavg_lm.BATCH, budget,
+                                 seed=0)))["tokens"]
+    batch = {"tokens": torch.from_numpy(toks).to("cuda").long()}
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    @torch.no_grad()
+    def load():
+        for w, g in zip(work.parameters(), model.parameters()):
+            w.copy_(g)
+
+    def clone():
+        return {n: p.detach().clone() for n, p in work.named_parameters()}
+
+    clients = [clone() for _ in range(FEDAVG_CLIENTS)]
+    out = dict(
+        load_ms=wall_ms(load, 5),
+        opt_init_ms=wall_ms(lambda: opt.init(dict(work.named_parameters())),
+                            5),
+        step_ms=wall_ms(lambda: step(work, state, batch), 5),
+        clone_ms=wall_ms(clone, 5),
+        fedavg_ms=wall_ms(lambda: fedavg_lm.fedavg(work, clients), 3),
+        check_ms=wall_ms(lambda: fedavg_check(torch, [])(0, work, clients),
+                         3))
+    out["round_ms"] = FEDAVG_CLIENTS * (
+        out["load_ms"] + out["opt_init_ms"] + FEDAVG_STEPS * out["step_ms"]
+        + out["clone_ms"]) + out["fedavg_ms"] + out["check_ms"]
+    _, out["step_trace"] = trace_call(torch, lambda: step(work, state, batch))
+    restore_counts(fa.flash_attention, saved)
+    del work, clients
+    return out
+
+
+def phase_fedavg_lm(torch):
+    """examples/fedavg_lm.py's flow on the card through
+    `repro_torch.launch.fedavg_lm`: the allocation (SP1 sweep, so
+    sp1_lambda_sum launches), the clients' token budgets, then FedAvg
+    rounds of the internlm2-20b cut (8 flash_attention launches a local
+    step: forward and remat recompute), with the fleet energy and round
+    makespan from the allocation; then `fedavg_breakdown`."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import arch_system, from_config
+    from repro_torch.core.energy import feasible
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import fedavg_lm
+    from repro_torch.models.transformer import init_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(LM_DENSE)
+    system = arch_system(0, LM_DENSE, n_devices=FEDAVG_CLIENTS,
+                         device="cuda")
+    gaps = []
+
+    def run():
+        al = fedavg_lm.allocate(system)
+        t0 = time.perf_counter()
+        model = init_model(cfg, 0, "cuda")
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses = fedavg_lm.train_rounds(
+            model, cfg, al.budgets, rounds=FEDAVG_ROUNDS,
+            local_steps=FEDAVG_STEPS, on_round=fedavg_check(torch, gaps))
+        torch.cuda.synchronize()
+        return al, losses, init_s, time.perf_counter() - t0, model
+
+    (al, losses, init_s, train_s, model), counts, reads, wall = counted(
+        torch, run)
+    bodies = dict(fa.flash_attention.launches_by_body)
+    a = al.result.allocation
+    per_step = train_launches(cfg)["flash_attention"]
+    want_flash = FEDAVG_ROUNDS * FEDAVG_CLIENTS * FEDAVG_STEPS * per_step
+    run_rec = dict(
+        arch=LM_DENSE, layers=cfg.n_layers, dtype=cfg.dtype,
+        parameters=sum(p.numel() for p in model.parameters()),
+        c_n_flops_per_token=from_config(get_config(LM_DENSE)).flops_per_token,
+        cycles=system.cycles.tolist(), budgets=al.budgets,
+        resolution=a.resolution.tolist(), bandwidth=a.bandwidth.tolist(),
+        power=a.power.tolist(), freq=a.freq.tolist(),
+        bcd_iters=int(al.result.iters), feasible=bool(feasible(system, a)),
+        energy_j=al.energy_per_round * FEDAVG_ROUNDS,
+        makespan_s=al.makespan, losses=losses, fedavg=gaps,
+        launches=counts, host_reads=reads, flash_launches_by_body=bodies,
+        wall_s=wall, init_s=init_s, train_s=train_s,
+        local_step_s=train_s / (FEDAVG_ROUNDS * FEDAVG_CLIENTS
+                                * FEDAVG_STEPS),
+        breakdown=fedavg_breakdown(torch, cfg, model, max(al.budgets)))
+    del model
+    torch.cuda.empty_cache()
+    record("fedavg_lm", **run_rec)
+    check(run_rec["feasible"], f"fedavg_lm: infeasible allocation {run_rec}")
+    check(all(b in (32, 64, 96, 128) for b in al.budgets),
+          f"fedavg_lm: budgets {al.budgets} off the menu")
+    check(all(math.isfinite(x) for ls in losses for x in ls)
+          and len(losses) == FEDAVG_ROUNDS,
+          f"fedavg_lm: losses {losses}")
+    check(len(gaps) == FEDAVG_ROUNDS and all(
+        g["max_rel_gap"] <= FEDAVG_ROUND_TOL and g["equal_to_rounded"]
+        for g in gaps),
+        f"fedavg_lm: FedAvg against the float32 mean {gaps}")
+    check(counts["sp1_lambda_sum"] > 0
+          and counts["sp1_lambda_sum"] % 3 == 0,
+          f"fedavg_lm: sp1_lambda_sum launches {counts}")
+    check(counts["flash_attention"] == want_flash
+          and bodies["wgmma"] == want_flash,
+          f"fedavg_lm: flash launches {counts}, bodies {bodies} (want "
+          f"{want_flash}, all wgmma)")
+    return run_rec
+
+
+def dryrun_subprocesses():
+    """The DRYRUN_PAIRS command lines of `python -m
+    repro_torch.launch.dryrun`, started side by side (CPU only: meta
+    tensors and a fake process group); each writes its records to a JSONL
+    file under build/dryrun/. Returns [(arch, shape, out, process,
+    start)]."""
+    import os
+    import shutil
+
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mp in DRYRUN_PAIRS:
+        out = out_dir / f"{arch}_{shape}.jsonl"
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--shape", shape, "--multi-pod", mp, "--out", str(out)]
+        procs.append((arch, shape, out, subprocess.Popen(
+            argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), time.perf_counter()))
+    return procs
+
+
+def stop(procs):
+    """Kills whichever of `dryrun_subprocesses`' processes still runs."""
+    for *_, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_vs_card(torch):
+    """The lm_train cut's prefill at DRYRUN_BATCH x DRYRUN_SEQ (int32
+    tokens, as launch/specs.py gives them): the abstract pass on the 1 x 1
+    host mesh, then the same prefill on the card under FlopCounterMode.
+    The abstract per-device argument bytes must be the bytes the card
+    allocates for the parameters and the batch (the caching allocator's
+    count and the tensors' storage), and the two FLOP counts equal."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.sharding.partition import fsdp_tp_rules
+
+    cfg = train_config(LM_DENSE)
+    specs = {"tokens": torch.empty((DRYRUN_BATCH, DRYRUN_SEQ),
+                                   dtype=torch.int32, device="meta")}
+    had_group = dist.is_initialized()
+    mesh = make_host_mesh()
+    try:
+        rec = lower_step(cfg, "prefill", specs, mesh, fsdp_tp_rules(False))
+    finally:
+        if not had_group:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = init_model(cfg, 0, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (DRYRUN_BATCH, DRYRUN_SEQ),
+                         dtype=torch.int32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    storage = sum(p.untyped_storage().nbytes() for p in model.parameters()) \
+        + toks.untyped_storage().nbytes()
+    step = make_prefill_step(cfg)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        logits = step(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all())
+    card_flops = fc.get_total_flops()
+    del model, toks, logits
+    torch.cuda.empty_cache()
+    out = dict(arch=LM_DENSE, layers=cfg.n_layers, batch=DRYRUN_BATCH,
+               seq=DRYRUN_SEQ, abstract=rec, card_allocated_bytes=allocated,
+               card_storage_bytes=storage, card_flops=card_flops,
+               logits_finite=finite)
+    record("dryrun_vs_card", **out)
+    check(rec["argument_bytes"] == allocated == storage,
+          f"dryrun vs card: argument bytes {rec['argument_bytes']}, card "
+          f"allocated {allocated}, storage {storage}")
+    check(float(card_flops) == rec["flops"],
+          f"dryrun vs card: FLOPs abstract {rec['flops']}, card {card_flops}")
+    check(finite, "dryrun vs card: non-finite logits")
+    return out
+
+
+def phase_dryrun(torch):
+    """(a) launch.dryrun on internlm2-20b x prefill_32k (both meshes) and
+    jamba-1.5-large-398b x train_4k, each its own process, the two side by
+    side (`dryrun_subprocesses`; each run's seconds from its start are
+    recorded): exit 0 and "0 failed", their records' seconds, FLOPs and
+    per-device argument bytes, and FLOPs over the roofline's analytic
+    count (printed, not held); (b) `dryrun_vs_card` while they run; (c)
+    the roofline's single-pod table at the card's constants."""
+    from repro_torch.roofline import analytic_costs, full_table, \
+        markdown_table
+
+    procs = dryrun_subprocesses()
+    try:
+        vs_card = dryrun_vs_card(torch)
+        runs = []
+        for arch, shape, out, proc, start in procs:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            recs = [json.loads(line) for line in
+                    out.read_text().splitlines()] if out.exists() else []
+            runs.append(dict(arch=arch, shape=shape, rc=proc.returncode,
+                             wall_s=time.perf_counter() - start,
+                             summary=text.strip().splitlines()[-1:],
+                             records=recs, tail=text[-2000:]))
+    finally:
+        stop(procs)
+    pairs = []
+    for r in runs:
+        check(r["rc"] == 0 and r["summary"]
+              and r["summary"][0].endswith(" 0 failed") and r["records"],
+              f"dryrun {r['arch']} x {r['shape']}: rc {r['rc']}, "
+              f"{r['tail']}")
+        for rec in r["records"]:
+            analytic = analytic_costs(rec["arch"], rec["shape"],
+                                      rec["mesh"] == "2x16x16")
+            pairs.append(dict(
+                arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+                lower_s=rec["lower_s"], flops=rec["flops"],
+                hbm_bytes=rec["hbm_bytes"],
+                argument_bytes=rec["argument_bytes"],
+                output_bytes=rec["output_bytes"],
+                flops_over_analytic=rec["flops"] / analytic.flops_global))
+    rows = full_table(multi_pod=False)
+    table = markdown_table(rows)
+    print(table, flush=True)
+    record("dryrun", pairs=pairs, runs_wall_s={
+        f"{r['arch']} x {r['shape']}": r["wall_s"] for r in runs},
+        vs_card=vs_card, roofline=[
+        {k: r[k] for k in ("arch", "shape", "t_compute_s", "t_memory_s",
+                           "t_collective_s", "dominant", "useful_ratio")}
+        for r in rows])
+    return pairs
 
 
 # each kernel: its source in csrc/, the phase that holds it against its

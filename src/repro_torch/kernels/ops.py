@@ -15,12 +15,22 @@ and `models.ssm._ssm_chunked`) and differentiates it with
 none. `backward=None` means forward only: every caller in the port's
 models passes its formulation, and a backward without one raises. The scans' final states are
 not differentiable: they feed the decode cache, never a loss.
+
+Each Function's forward is one call of a `torch.library` custom op
+(`repro_torch::flash_attention`, `::rwkv6_scan`, `::mamba_scan`) with
+three implementations: the hand-written kernel for CUDA tensors, the
+plain version for CPU tensors and, for "meta" tensors (an abstract pass:
+`launch/dryrun.py`), a fake that gives only the output shapes and dtypes.
+Each op has a FLOP formula (`flash_attention_flops`, `rwkv6_scan_flops`,
+`mamba_scan_flops`: the operation counts of `chip_smoke.py`'s bounds),
+which `torch.utils.flop_counter.FlopCounterMode` reads on any device.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import flash_attention as _flash
 from . import mamba_scan as _mamba
@@ -30,10 +40,136 @@ from . import sp1_sweep, waterfill
 Tensor = torch.Tensor
 
 
-def _device(name: str, x: Tensor) -> str:
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: no kernel for device {x.device}")
-    return x.device.type
+# ---------------------------------------------------------------------------
+# operation counts (the FLOP formulas of the custom ops)
+# ---------------------------------------------------------------------------
+
+def kept_pairs(S: int, T: int, causal: bool, window: Optional[int]) -> int:
+    """The (s, t) pairs `flash_attention`'s mask keeps: 0 <= s < S,
+    0 <= t < T, t <= s when causal, s - t < window when a window is set.
+    Summed over the diagonals d = s - t, each holding
+    min(S, T + d) - max(0, d) pairs, piecewise linear in d."""
+    lo = 0 if causal else -(T - 1)
+    hi = S - 1 if window is None else min(S - 1, window - 1)
+    if lo > hi:
+        return 0
+
+    def n(d):
+        return min(S, T + d) - max(0, d)
+
+    cuts = sorted({lo, hi + 1} | {c for c in (0, S - T) if lo < c <= hi})
+    return sum((n(a) + n(b - 1)) * (b - a) // 2
+               for a, b in zip(cuts, cuts[1:]))
+
+
+def flash_attention_flops(B: int, H: int, S: int, T: int, hd: int, vd: int,
+                          causal: bool, window: Optional[int]) -> int:
+    """Each kept (s, t) pair of each (b, h) is an hd-long dot and a
+    vd-long update, 2 operations a multiply-add (the exponentials left
+    out)."""
+    return B * H * kept_pairs(S, T, causal, window) * 2 * (hd + vd)
+
+
+def rwkv6_scan_flops(B: int, T: int, H: int, K: int) -> int:
+    """The recurrence's operations per (b, t, h): r S (2 K^2),
+    S <- w S + k v^T (3 K^2), w = exp(log w) (K) and the u bonus (5 K)."""
+    return B * T * H * (5 * K * K + 6 * K)
+
+
+def mamba_scan_flops(B: int, T: int, D: int, N: int) -> int:
+    """Per (b, t, d, n): the decay's product and exponential (2), the
+    update a h + (dt B) x (4), the y term h C and its sum over n (2)."""
+    return 8 * B * T * D * N
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: kernel (CUDA), plain version (CPU), fake (meta)
+# ---------------------------------------------------------------------------
+
+# Declared with the low-level `torch.library.Library` API, each device's
+# implementation registered under its dispatch key: a call goes from the
+# dispatcher straight to the implementation (`torch.library.custom_op`'s
+# wrapper imports torch._dynamo on a process's first call, seconds of
+# host time, and adds ~40 us a call).
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window, float? scale) -> Tensor")
+_LIB.define("rwkv6_scan(Tensor r, Tensor k, Tensor v, Tensor logw, "
+            "Tensor u, int chunk) -> (Tensor, Tensor)")
+_LIB.define("mamba_scan(Tensor dt, Tensor A, Tensor Bt, Tensor Ct, "
+            "Tensor x) -> (Tensor, Tensor)")
+
+
+def _flash_cuda(q, k, v, causal, window, scale):
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale)
+
+
+def _flash_cpu(q, k, v, causal, window, scale):
+    return _flash.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+
+
+def _flash_fake(q, k, v, causal, window, scale):
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+def _rwkv_cuda(r, k, v, logw, u, chunk):
+    return _rwkv.rwkv6_scan(r, k, v, logw, u, chunk=chunk)
+
+
+def _rwkv_cpu(r, k, v, logw, u, chunk):
+    return _rwkv.rwkv6_scan_ref(r, k, v, logw, u, chunk=chunk)
+
+
+def _rwkv_fake(r, k, v, logw, u, chunk):
+    B, T, H, K = r.shape
+    return (r.new_empty((B, T, H, K), dtype=torch.float32),
+            r.new_empty((B, H, K, K), dtype=torch.float32))
+
+
+def _mamba_cuda(dt, A, Bt, Ct, x):
+    return _mamba.mamba_scan(dt, A, Bt, Ct, x)
+
+
+def _mamba_cpu(dt, A, Bt, Ct, x):
+    return _mamba.mamba_scan_ref(dt, A, Bt, Ct, x)
+
+
+def _mamba_fake(dt, A, Bt, Ct, x):
+    B, T, D = x.shape
+    return (x.new_empty((B, T, D), dtype=torch.float32),
+            x.new_empty((B, D, A.shape[1]), dtype=torch.float32))
+
+
+for _name, _cuda, _cpu, _fake in (
+        ("flash_attention", _flash_cuda, _flash_cpu, _flash_fake),
+        ("rwkv6_scan", _rwkv_cuda, _rwkv_cpu, _rwkv_fake),
+        ("mamba_scan", _mamba_cuda, _mamba_cpu, _mamba_fake)):
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _cpu, "CPU")
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
+
+flash_attention_op = torch.ops.repro_torch.flash_attention.default
+rwkv6_scan_op = torch.ops.repro_torch.rwkv6_scan.default
+mamba_scan_op = torch.ops.repro_torch.mamba_scan.default
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q, k, v, causal, window, scale, *args, **kwargs):
+    B, H, S, hd = q
+    return flash_attention_flops(B, H, S, k[2], hd, v[3], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_scan)
+def _(r, k, v, logw, u, chunk, *args, **kwargs):
+    return rwkv6_scan_flops(*r)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan)
+def _(dt, A, Bt, Ct, x, *args, **kwargs):
+    B, T, D = x
+    return mamba_scan_flops(B, T, D, A[1])
 
 
 def _recomputed_grads(name: str, formulation: Optional[Callable],
@@ -63,11 +199,7 @@ class FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, scale=scale)
         ctx.formulation = backward
-        if _device("flash_attention", q) == "cuda":
-            return _flash.flash_attention(q, k, v, causal=causal,
-                                          window=window, scale=scale)
-        return _flash.flash_attention_ref(q, k, v, causal=causal,
-                                          window=window, scale=scale)
+        return flash_attention_op(q, k, v, causal, window, scale)
 
     @staticmethod
     def backward(ctx, go):
@@ -91,10 +223,7 @@ class RWKV6Scan(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, logw, u)
         ctx.chunk, ctx.formulation = chunk, backward
-        if _device("rwkv6_scan", r) == "cuda":
-            o, S = _rwkv.rwkv6_scan(r, k, v, logw, u, chunk=chunk)
-        else:
-            o, S = _rwkv.rwkv6_scan_ref(r, k, v, logw, u, chunk=chunk)
+        o, S = rwkv6_scan_op(r, k, v, logw, u, chunk)
         ctx.mark_non_differentiable(S)
         return o, S
 
@@ -116,10 +245,7 @@ class MambaScan(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(dt, A, Bt, Ct, x)
         ctx.formulation = backward
-        if _device("mamba_scan", x) == "cuda":
-            y, h = _mamba.mamba_scan(dt, A, Bt, Ct, x)
-        else:
-            y, h = _mamba.mamba_scan_ref(dt, A, Bt, Ct, x)
+        y, h = mamba_scan_op(dt, A, Bt, Ct, x)
         ctx.mark_non_differentiable(h)
         return y, h
 

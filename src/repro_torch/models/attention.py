@@ -26,6 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
+from ..sharding.partition import shard
 from .layers import apply_rope, normal
 
 Tensor = torch.Tensor
@@ -235,6 +236,7 @@ def _attn_chunk(qi: Tensor, kh: Tensor, vh: Tensor, q0: int, causal: bool,
     """One query chunk of `_chunked_attn`: qi (B,c,H,hd) at positions q0..,
     kh/vh (B,T,H,*) -> (B,c,H,vd)."""
     scores = torch.einsum("bchd,bthd->bhct", qi, kh).float() * scale
+    scores = shard(scores, "batch", "heads", None, None)
     if causal:
         qpos = q0 + torch.arange(qi.shape[1], device=qi.device)[:, None]
         kpos = torch.arange(kh.shape[1], device=qi.device)[None, :]
@@ -259,8 +261,10 @@ def _chunked_attn(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     it; the last chunk is short instead of padded."""
     S, H = q.shape[1], q.shape[2]
     G = H // k.shape[2]
-    kh = k.repeat_interleave(G, dim=2)
-    vh = v.repeat_interleave(G, dim=2)
+    kh = shard(k.repeat_interleave(G, dim=2), "batch", "seq", "heads",
+               "head_dim")
+    vh = shard(v.repeat_interleave(G, dim=2), "batch", "seq", "heads",
+               "head_dim")
     c = min(chunk, S)
     return torch.cat([checkpoint(_attn_chunk, q[:, q0:q0 + c], kh, vh, q0,
                                  causal, window, scale, use_reentrant=False)
@@ -341,6 +345,8 @@ def attention(p: Attention, x: Tensor, *, positions: Optional[Tensor] = None,
     if p.bk is not None:
         k = k + p.bk
         v = v + p.bv
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
 
     if kv_x is not None:
         out = _flash(q, k, v, causal=False, window=None, scale=scale)
@@ -376,12 +382,17 @@ def attention(p: Attention, x: Tensor, *, positions: Optional[Tensor] = None,
         cache.qv[:, slot] = qv[:, 0]
         cache.k_scale[:, slot] = ks[:, 0]
         cache.v_scale[:, slot] = vs[:, 0]
-        k_all = _dequantize(cache.qk, cache.k_scale, k.dtype)
-        v_all = _dequantize(cache.qv, cache.v_scale, v.dtype)
+        k_all = _dequantize(
+            shard(cache.qk, "batch", "kv_seq", "kv_heads", "head_dim"),
+            shard(cache.k_scale, "batch", "kv_seq", "kv_heads"), k.dtype)
+        v_all = _dequantize(
+            shard(cache.qv, "batch", "kv_seq", "kv_heads", "head_dim"),
+            shard(cache.v_scale, "batch", "kv_seq", "kv_heads"), v.dtype)
     else:
         cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
         cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-        k_all, v_all = cache.k, cache.v
+        k_all = shard(cache.k, "batch", "kv_seq", "kv_heads", "head_dim")
+        v_all = shard(cache.v, "batch", "kv_seq", "kv_heads", "head_dim")
     out = _grouped_attn(q, k_all, v_all,
                         _decode_valid(slots, pos, window, x.device), scale)
     return _out(out, p.wo), cache

@@ -5,8 +5,10 @@ attribute names are the reference's dict leaves (`scale`, `wi`, `wg`,
 `wo`, `tokens`, `w`), so a JAX parameter tree maps onto them name for name
 (`interop.model_params_from_numpy`). Every init draws from an explicit
 `torch.Generator` on the target device with the reference's distribution
-and scale, one tensor at a time. The reference's `shard(...)` constraints
-are dropped: they are no-ops without a mesh, and sharding is not ported.
+and scale, one tensor at a time; on "meta" (`MetaGenerator`) nothing is
+drawn and every parameter is an empty meta tensor of the same name, shape
+and dtype. The reference's `shard(...)` constraints stand at its places
+(`sharding.partition.shard`): without active rules each is one check.
 """
 from __future__ import annotations
 
@@ -15,13 +17,25 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..sharding.partition import shard
+
 Tensor = torch.Tensor
+
+
+class MetaGenerator:
+    """Stands for a `torch.Generator` in an abstract build (PyTorch has no
+    generator on "meta"): `normal` draws nothing from it."""
+    device = torch.device("meta")
 
 
 def normal(gen: torch.Generator, shape: Sequence[int], sd: float,
            dtype: torch.dtype) -> nn.Parameter:
     """N(0, sd^2) drawn in float32 on the generator's device, cast to
-    `dtype` (the reference's `(jax.random.normal(k, shape) * sd).astype`)."""
+    `dtype` (the reference's `(jax.random.normal(k, shape) * sd).astype`);
+    an empty meta tensor from a `MetaGenerator`."""
+    if gen.device.type == "meta":
+        return nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                        device="meta"), requires_grad=False)
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return nn.Parameter(x.mul_(sd).to(dtype), requires_grad=False)
@@ -85,7 +99,8 @@ class MLP(nn.Module):
 def apply_mlp(p: MLP, x: Tensor) -> Tensor:
     h = torch.matmul(x, p.wi)
     g = torch.matmul(x, p.wg)
-    return torch.matmul(torch.nn.functional.silu(g) * h, p.wo)
+    h = shard(torch.nn.functional.silu(g) * h, "batch", "seq", "mlp")
+    return torch.matmul(h, p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +128,7 @@ def embed_tokens(embed: Embed, tokens: Tensor) -> Tensor:
 def lm_logits(embed: Embed, head: Optional[LMHead], x: Tensor) -> Tensor:
     """Logits in float32: the tied embedding unless an untied head exists."""
     w = head.w if head is not None else embed.tokens.t()
-    return torch.matmul(x, w).float()
+    return shard(torch.matmul(x, w).float(), "batch", "seq", "vocab")
 
 
 def softmax_xent(logits: Tensor, labels: Tensor,

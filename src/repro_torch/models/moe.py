@@ -20,6 +20,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ..sharding.partition import shard
 from .layers import normal
 
 Tensor = torch.Tensor
@@ -30,7 +31,7 @@ def _normal_stack(gen: torch.Generator, shape: Sequence[int], sd: float,
     """N(0, sd^2) of `shape`, drawn one leading slice at a time, so the
     float32 draw of one expert is the largest transient."""
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
-    for e in range(shape[0]):
+    for e in range(shape[0] if gen.device.type != "meta" else 0):
         out[e] = normal(gen, shape[1:], sd, dtype)
     return nn.Parameter(out, requires_grad=False)
 
@@ -88,11 +89,13 @@ def apply_moe(p: MoE, x: Tensor, top_k: int,
 
     xe = x[torch.arange(B, device=x.device)[:, None, None], sidx]
     xe = torch.where(filled[..., None], xe, 0)           # (B, E, C, D)
+    xe = shard(xe, "batch", "experts", None, None)
     xe = xe.transpose(0, 1).reshape(E, B * cap, D)
     h = torch.bmm(xe, p.wi)
     g = torch.bmm(xe, p.wg)
     ye = torch.bmm(torch.nn.functional.silu(g) * h, p.wo)  # (E, B C, D)
     ye = ye.reshape(E, B, cap, D).transpose(0, 1)        # (B, E, C, D)
+    ye = shard(ye, "batch", "experts", None, None)
 
     # combine: each token gathers its k outputs (a zero row for a dropped
     # assignment), weighted by its gate in x's dtype, summed in top-k order

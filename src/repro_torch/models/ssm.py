@@ -7,7 +7,8 @@ through `kernels.ops.mamba_scan`, RWKV6's chunked WKV through
 `kernels.ops.rwkv6_scan` (the CUDA kernels on the card, their plain
 versions on the CPU). Their gradients are taken through the reference's
 training formulations, ported here: `_ssm_chunked` (the in-chunk
-associative scan of `_ssm_chunk`, chunk `ssm_chunk`) and `_wkv_chunked`
+associative scan of `_ssm_chunk`, chunk `ssm_chunk`, its state-free terms
+for all whole chunks at once) and `_wkv_chunked`
 (`_wkv_chunk` per chunk of `rwkv_chunk`, its state-independent terms
 for several chunks at once). Decode is the single-step recurrence in plain
 torch.
@@ -35,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
+from ..sharding.partition import shard
 from .layers import const, normal
 
 Tensor = torch.Tensor
@@ -127,13 +129,38 @@ def _ssm_chunked(dt: Tensor, A: Tensor, Bt: Tensor, Ct: Tensor, x: Tensor,
     """`_ssm_chunk` over the sequence in chunks of `chunk` (the last may be
     short), the state carried from a zero one: the Mamba scan's training
     formulation, which `mamba_scan`'s gradient is taken through. Same
-    signature and result as `kernels.ops.mamba_scan`."""
-    h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]),
-                    dtype=torch.float32, device=x.device)
+    signature and result as `kernels.ops.mamba_scan`.
+
+    The whole chunks' state-free terms (each chunk's decays
+    exp(cumsum(dt A)) and its scan from a zero state) are formed for all
+    chunks at once, chunks folded into the batch; only the state is
+    carried chunk to chunk (h <- decay_end h + scan_end), then added in:
+    `_ssm_chunk`'s operations on the same operands, in far fewer calls."""
+    B, T, D = x.shape
+    h = torch.zeros((B, D, A.shape[1]), dtype=torch.float32, device=x.device)
+    n = T // chunk
     ys = []
-    for c0 in range(0, x.shape[1], chunk):
-        dtc, Bc, Cc, xc = (t[:, c0:c0 + chunk] for t in (dt, Bt, Ct, x))
-        y, h = _ssm_chunk(h, dtc, A, Bc, Cc, xc)
+    if n:
+        def fold(t):
+            return t[:, :n * chunk].reshape(B * n, chunk, *t.shape[2:])
+
+        dtc, Bc, Cc, xc = (fold(t) for t in (dt, Bt, Ct, x))
+        la = dtc[..., None] * A                             # (Bn,L,Di,N)
+        u = dtc[..., None] * Bc[:, :, None, :] * xc[..., None]
+        decay = torch.exp(torch.cumsum(la, dim=1)).unflatten(0, (B, n))
+        scan = _assoc_scan(la, u).unflatten(0, (B, n))
+        h_in = []
+        for c in range(n):
+            h_in.append(h)
+            h = decay[:, c, -1] * h + scan[:, c, -1]
+        hs = decay * torch.stack(h_in, 1)[:, :, None] + scan
+        ys.append(torch.einsum("bcldn,bcln->bcld", hs,
+                               Cc.unflatten(0, (B, n))).reshape(B, n * chunk,
+                                                                D))
+    if T > n * chunk:
+        c0 = n * chunk
+        y, h = _ssm_chunk(h, dt[:, c0:], A, Bt[:, c0:], Ct[:, c0:],
+                          x[:, c0:])
         ys.append(y)
     return torch.cat(ys, dim=1), h
 
@@ -148,7 +175,7 @@ def mamba(p: Mamba, x: Tensor, *, mode: str = "train",
     A = -torch.exp(p.a_log)                                 # (Di, N)
     Kc = p.conv_w.shape[0]
     silu = torch.nn.functional.silu
-    xin = torch.matmul(x, p.in_proj)
+    xin = shard(torch.matmul(x, p.in_proj), "batch", "seq", "inner")
     z = torch.matmul(x, p.gate_proj)
 
     if mode == "decode":

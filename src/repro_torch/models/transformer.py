@@ -42,11 +42,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..core.types import resolve_device
+from ..sharding.partition import shard
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .layers import (MLP, Embed, LMHead, RMSNorm, apply_mlp, embed_tokens,
-                     lm_logits, rms_norm, softmax_xent)
+from .layers import (MLP, Embed, LMHead, MetaGenerator, RMSNorm, apply_mlp,
+                     embed_tokens, lm_logits, rms_norm, softmax_xent)
 
 Tensor = torch.Tensor
 Cache = List[Dict[str, object]]
@@ -123,9 +124,12 @@ class Model(nn.Module):
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """Random weights from `seed`, drawn on `device` one tensor at a time
     (no float32 copy of the whole model), with the reference's
-    distributions and scales."""
+    distributions and scales. On "meta" nothing is drawn: every parameter
+    is an empty meta tensor with the CPU build's name, shape and dtype
+    (the reference's `jax.eval_shape(init_model)`)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = MetaGenerator() if dev.type == "meta" \
+        else torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         return Model(cfg, gen)
 
@@ -304,6 +308,9 @@ def _period(period: nn.ModuleDict, cfg: ModelConfig, x: Tensor,
     """One period's sublayers in order, carrying (x, the aux loss so far),
     as the reference's scan body does: (x, aux, its new cache)."""
     new_cs = {}
+    # the residual stream's sequence parallelism (the reference's
+    # Megatron-style "seq_outer" split over the model axis)
+    x = shard(x, "batch", "seq_outer", "embed_act")
     for nm, p in period.items():
         kind = nm.split("_", 1)[1]
         c_in = cache[nm] if cache is not None else None
@@ -354,6 +361,7 @@ def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
         enc_out = _encoder_forward(model, cfg, batch["frame_embeds"])
     if cfg.n_patches and "patch_embeds" in batch and mode != "decode":
         x = torch.cat([batch["patch_embeds"].to(cfg.torch_dtype), x], dim=1)
+    x = shard(x, "batch", "seq", "embed_act")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = [] if cache is not None else None
     remat = mode == "train" and cfg.remat and cache is None

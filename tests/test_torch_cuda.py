@@ -1168,3 +1168,55 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, arch, kw):
     for name, g in g0.items():
         assert float((g1[name] - g).abs().max()) <= \
             1e-4 * float(g.abs().max()) + 1e-12, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flash_attention", "rwkv6_scan",
+                                "mamba_scan"])
+def test_custom_op_launches_the_kernel_and_counts_its_flops(cuda, op):
+    """Each LM kernel's custom op, on CUDA tensors, is its hand-written
+    kernel: the same bits as the wrapper (one launch each), FlopCounterMode
+    counts its formula, and the fake of the same inputs on "meta" gives the
+    card's shapes and dtypes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    if op == "flash_attention":
+        B, H, KV, S, hd = 2, 8, 2, 300, 128
+        xs = flash_inputs(cuda, torch.bfloat16, B, H, KV, S, S, hd)
+        args, wrapper = (*xs, True, 128, None), fa.flash_attention
+        direct = (wrapper(*xs, causal=True, window=128),)
+        flops = kops.flash_attention_flops(B, H, S, S, hd, hd, True, 128)
+        call = kops.flash_attention_op
+    elif op == "rwkv6_scan":
+        B, T, H, K = 2, 100, 3, 32
+        xs = rwkv_inputs(cuda, B, T, H, K)
+        args, wrapper = (*xs, 16), rw.rwkv6_scan
+        direct = wrapper(*xs, chunk=16)
+        flops = kops.rwkv6_scan_flops(B, T, H, K)
+        call = kops.rwkv6_scan_op
+    else:
+        B, T, D, N = 2, 100, 50, 16
+        xs = mamba_inputs(cuda, B, T, D, N)
+        args, wrapper = xs, ms.mamba_scan
+        direct = wrapper(*xs)
+        flops = kops.mamba_scan_flops(B, T, D, N)
+        call = kops.mamba_scan_op
+    launches = wrapper.launches
+    with FlopCounterMode(display=False) as fc:
+        out = call(*args)
+    torch.cuda.synchronize()
+    out = out if isinstance(out, tuple) else (out,)
+    assert wrapper.launches == launches + 1
+    assert fc.get_total_flops() == flops
+    assert all(torch.equal(a, b) for a, b in zip(out, direct))
+    fake = call(*(a.to("meta") if isinstance(a, torch.Tensor) else a
+                  for a in args))
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(f.shape, f.dtype) for f in fake] == \
+        [(o.shape, o.dtype) for o in out]
+    assert wrapper.launches == launches + 1

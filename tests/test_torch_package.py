@@ -24,7 +24,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.transformer, repro_torch.launch.serve, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.diff, repro_torch.dynamics, repro_torch.region; "
+            "repro_torch.diff, repro_torch.dynamics, repro_torch.region, "
+            "repro_torch.core.costmodel, repro_torch.launch.specs, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.fedavg_lm, repro_torch.roofline, "
+            "repro_torch.sharding; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton', 'msgpack')); "
             "print(bad); "
