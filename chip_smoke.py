@@ -21,8 +21,8 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
      over its non-zero prefix alone, the all-zero cell's exactly 0.0; records which attention body
      (wgmma, mma.sync or SIMT) each case takes, counted per body, and
      checks that every served attention, also in the model's layout,
-     takes the body `flash_attention.body` picks: wgmma where hd == vd,
-     mma.sync for MLA's q/k 96 and v 64;
+     takes the body `flash_attention.body` picks: wgmma, MLA's q/k 96
+     with v 64 included;
   3. drives the main paths through the port's entry points at full width,
      each with every kernel's launch count set to 0 just before and read
      just after:
@@ -121,13 +121,16 @@ It builds every CUDA kernel of the port from `src/repro_torch/kernels/csrc`
          and flash_attention launches counted; then where a round's time
          goes (the copies, a local step, FedAvg, the check; one local
          step traced);
-       - the abstract pass (`repro_torch.launch.dryrun`, meta tensors, a
-         fake process group): internlm2-20b x prefill_32k on both
-         production meshes and jamba-1.5-large-398b x train_4k, each its
-         own process, exit 0 with 0 failed; the internlm2 cut's prefill
-         at 4 x 2048 abstractly on the 1 x 1 host mesh and on the card,
-         the abstract argument bytes equal to the bytes the card
-         allocates and the FLOP counts equal; the roofline's single-pod
+       - the dry run (`repro_torch.launch.dryrun`, meta tensors and
+         DTensors, a fake process group): internlm2-20b x prefill_32k on
+         both production meshes, whole and reduced (repro's records of
+         the reduced pair printed beside), and jamba-1.5-large-398b x
+         train_4k cut to 3 of its 9 periods at full width, each its own
+         process, exit 0 with 0 failed, each record's per-device FLOPs,
+         bytes and collectives; the internlm2 cut's prefill at 4 x 2048
+         abstractly on the 1 x 1 host mesh and on the card, the abstract
+         argument bytes equal to the bytes the card allocates and the
+         unsharded FLOPs equal to the card's; the roofline's single-pod
          table at the H100's constants;
        - FL training (`fl.simulate`) on the paper's cell (N = 50, one FL
          client each) with the client CNN at its published widths
@@ -431,8 +434,23 @@ FEDAVG_ROUND_TOL = 2.0 ** -8
 # the host's CPU at the start of the dryrun phase), and the abstract pass
 # of the lm_train cut's prefill at batch 4 x 2048 on the 1 x 1 host mesh
 # held against the same prefill on the card while they run
-DRYRUN_PAIRS = (("internlm2-20b", "prefill_32k", "both"),
-                ("jamba-1.5-large-398b", "train_4k", "single"))
+# (arch, shape, meshes, the config's cut: None = `python -m
+# repro_torch.launch.dryrun` on the whole config, "reduced" = its
+# `.reduced()` widths, an int = its first that many periods at full width)
+DRYRUN_PAIRS = (("internlm2-20b", "prefill_32k", "both", None),
+                ("internlm2-20b", "prefill_32k", "both", "reduced"),
+                ("jamba-1.5-large-398b", "train_4k", "single", 3))
+# repro's records of reduced internlm2-20b x prefill_32k (its dry run on a
+# CPU host, ROADMAP Queue 3): per-device FLOPs and bytes and the
+# collectives' total bytes, printed beside the port's
+DRYRUN_REPRO_REDUCED = {
+    "16x16": dict(flops=5.940e10, hbm_bytes=1.330e11, collective_bytes=8.94e9,
+                  collectives={"all-reduce": 7, "all-gather": 2,
+                               "collective-permute": 9}),
+    "2x16x16": dict(flops=2.972e10, hbm_bytes=6.650e10,
+                    collective_bytes=4.47e9,
+                    collectives={"all-reduce": 7, "all-gather": 2,
+                                 "collective-permute": 9})}
 DRYRUN_BATCH, DRYRUN_SEQ = 4, 2048
 DRYRUN_TIMEOUT_S = 300
 
@@ -3091,8 +3109,9 @@ def flash_v_offset(hd, vd):
 def flash_cases():
     """(B, H, KV, S, T, hd, vd, causal, window): tests/test_kernels.py's
     shapes (MHA, GQA 2:1, MQA, window 128, non-causal T != S), ragged ones,
-    and the served attentions of flash_main_cases() (last, on the main
-    paths)."""
+    MLA's q/k 96 with v 64 (causal and not, ragged, window 128, GQA 2:1
+    and 3:1), and the served attentions of flash_main_cases() (last, on
+    the main paths)."""
     return [(1, 2, 2, 128, 128, 64, 64, True, None),
             (2, 4, 2, 256, 256, 64, 64, True, None),
             (1, 8, 1, 128, 128, 128, 128, True, None),
@@ -3100,6 +3119,10 @@ def flash_cases():
             (1, 2, 2, 128, 256, 64, 64, False, None),
             (2, 4, 2, 77, 77, 32, 32, True, None),
             (1, 3, 1, 70, 130, 96, 64, False, None),
+            (2, 4, 4, 200, 200, 96, 64, True, None),
+            (1, 4, 4, 300, 300, 96, 64, True, 128),
+            (2, 4, 2, 256, 256, 96, 64, True, None),
+            (2, 4, 2, 130, 70, 96, 64, False, None),
             *flash_main_cases().values()]
 
 
@@ -3177,8 +3200,7 @@ def phase_flash_kernel(torch):
     """flash_attention against its plain version on the card, each case on
     the body `flash_attention.body` picks (counted per body); each served
     attention must take the same body in the model's layout (`model_layout`)
-    and give the same bits there: wgmma where hd == vd, mma.sync for
-    MLA's 96 / 64."""
+    and give the same bits there: wgmma, MLA's q/k 96 with v 64 included."""
     from repro_torch.kernels import flash_attention as fa
 
     rows, main_err = [], 0.0
@@ -3225,7 +3247,7 @@ def phase_flash_kernel(torch):
                                     fa.flash_attention(qt, kt, vt, **kw),
                                     out))
                 del qt, kt, vt
-                want = "wgmma" if hd == vd else "mma"
+                want = "wgmma"
                 check(which == view_body == want,
                       f"flash_attention: served shape on the {which} body "
                       f"(model layout {view_body}), not {want} ({where})")
@@ -4556,12 +4578,37 @@ def phase_fedavg_lm(torch):
     return run_rec
 
 
+# a cut DRYRUN_PAIRS entry: launch.dryrun's passes on the cut config, its
+# records to a JSONL file and the command line's summary line
+DRYRUN_CUT = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+arch, shape, mp, cut, out = json.loads(sys.argv[1])
+cfg = get_config(arch)
+if cut == "reduced":
+    r = cfg.reduced()
+    ov = {f.name: getattr(r, f.name) for f in dataclasses.fields(r)
+          if getattr(r, f.name) != getattr(cfg, f.name)}
+else:
+    n = len(cfg.block_pattern) * cut
+    ov = dict(n_layers=n, block_pattern=cfg.block_pattern)
+dryrun.fake_group()
+meshes = {"single": [False], "multi": [True], "both": [False, True]}[mp]
+for multi in meshes:
+    rec = dryrun.lower_pair(arch, shape, multi, cfg_overrides=ov)
+    with open(out, "a") as f:
+        f.write(json.dumps(dict(rec, cut=cut, overrides=ov)) + "\\n")
+print(f"dry-run summary: {len(meshes)} ok, 0 skipped, 0 failed")
+"""
+
+
 def dryrun_subprocesses():
-    """The DRYRUN_PAIRS command lines of `python -m
-    repro_torch.launch.dryrun`, started side by side (CPU only: meta
-    tensors and a fake process group); each writes its records to a JSONL
-    file under build/dryrun/. Returns [(arch, shape, out, process,
-    start)]."""
+    """The DRYRUN_PAIRS runs, started side by side (CPU only: meta tensors
+    and a fake process group): `python -m repro_torch.launch.dryrun` for
+    a whole config, DRYRUN_CUT for a cut one; each writes its records to a
+    JSONL file under build/dryrun/. Returns [(arch, shape, cut, out,
+    process, start)]."""
     import os
     import shutil
 
@@ -4570,11 +4617,14 @@ def dryrun_subprocesses():
     out_dir.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
-    for arch, shape, mp in DRYRUN_PAIRS:
-        out = out_dir / f"{arch}_{shape}.jsonl"
+    for arch, shape, mp, cut in DRYRUN_PAIRS:
+        out = out_dir / f"{arch}_{shape}_{cut}.jsonl"
         argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                 arch, "--shape", shape, "--multi-pod", mp, "--out", str(out)]
-        procs.append((arch, shape, out, subprocess.Popen(
+        if cut is not None:
+            argv = [sys.executable, "-c", DRYRUN_CUT,
+                    json.dumps([arch, shape, mp, cut, str(out)])]
+        procs.append((arch, shape, cut, out, subprocess.Popen(
             argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), time.perf_counter()))
     return procs
@@ -4594,7 +4644,8 @@ def dryrun_vs_card(torch):
     host mesh, then the same prefill on the card under FlopCounterMode.
     The abstract per-device argument bytes must be the bytes the card
     allocates for the parameters and the batch (the caching allocator's
-    count and the tensors' storage), and the two FLOP counts equal."""
+    count and the tensors' storage), and the unsharded pass's FLOPs
+    (`flops_global`) the card's."""
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -4641,20 +4692,24 @@ def dryrun_vs_card(torch):
     check(rec["argument_bytes"] == allocated == storage,
           f"dryrun vs card: argument bytes {rec['argument_bytes']}, card "
           f"allocated {allocated}, storage {storage}")
-    check(float(card_flops) == rec["flops"],
-          f"dryrun vs card: FLOPs abstract {rec['flops']}, card {card_flops}")
+    check(float(card_flops) == rec["flops_global"],
+          f"dryrun vs card: FLOPs abstract {rec['flops_global']}, card "
+          f"{card_flops}")
     check(finite, "dryrun vs card: non-finite logits")
     return out
 
 
 def phase_dryrun(torch):
-    """(a) launch.dryrun on internlm2-20b x prefill_32k (both meshes) and
-    jamba-1.5-large-398b x train_4k, each its own process, the two side by
-    side (`dryrun_subprocesses`; each run's seconds from its start are
-    recorded): exit 0 and "0 failed", their records' seconds, FLOPs and
-    per-device argument bytes, and FLOPs over the roofline's analytic
-    count (printed, not held); (b) `dryrun_vs_card` while they run; (c)
-    the roofline's single-pod table at the card's constants."""
+    """(a) launch.dryrun on DRYRUN_PAIRS (internlm2-20b x prefill_32k on
+    both meshes, whole and reduced, and jamba-1.5-large-398b x
+    train_4k), each its own process, side by side
+    (`dryrun_subprocesses`; each run's seconds from its start are
+    recorded): exit 0 and "0 failed", their records' seconds, per-device
+    FLOPs, bytes, collectives and argument bytes, the unsharded FLOPs over
+    the roofline's analytic count (printed, not held) and, for the reduced
+    pair, repro's records beside them (DRYRUN_REPRO_REDUCED); (b)
+    `dryrun_vs_card` while they run; (c) the roofline's single-pod table
+    at the card's constants."""
     from repro_torch.roofline import analytic_costs, full_table, \
         markdown_table
 
@@ -4662,11 +4717,12 @@ def phase_dryrun(torch):
     try:
         vs_card = dryrun_vs_card(torch)
         runs = []
-        for arch, shape, out, proc, start in procs:
+        for arch, shape, cut, out, proc, start in procs:
             text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             recs = [json.loads(line) for line in
                     out.read_text().splitlines()] if out.exists() else []
-            runs.append(dict(arch=arch, shape=shape, rc=proc.returncode,
+            runs.append(dict(arch=arch, shape=shape, cut=cut,
+                             rc=proc.returncode,
                              wall_s=time.perf_counter() - start,
                              summary=text.strip().splitlines()[-1:],
                              records=recs, tail=text[-2000:]))
@@ -4680,19 +4736,35 @@ def phase_dryrun(torch):
               f"{r['tail']}")
         for rec in r["records"]:
             analytic = analytic_costs(rec["arch"], rec["shape"],
-                                      rec["mesh"] == "2x16x16")
+                                      rec["mesh"] == "2x16x16",
+                                      cfg_overrides=rec.get("overrides"))
+            check(rec["collectives"]["total_bytes"] > 0
+                  and rec["flops"] * rec["n_devices"] >= rec["flops_global"]
+                  > rec["flops"] > 0,
+                  f"dryrun {r['arch']} x {r['shape']} ({r['cut']}) on "
+                  f"{rec['mesh']}: per-device FLOPs {rec['flops']}, global "
+                  f"{rec['flops_global']}, collectives "
+                  f"{rec['collectives']['total_bytes']} bytes")
             pairs.append(dict(
                 arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
-                lower_s=rec["lower_s"], flops=rec["flops"],
+                cut=r["cut"], lower_s=rec["lower_s"], flops=rec["flops"],
                 hbm_bytes=rec["hbm_bytes"],
+                collectives=rec["collectives"], reshards=rec["reshards"],
+                temp_bytes=rec["temp_bytes"],
+                flops_global=rec["flops_global"],
+                hbm_bytes_global=rec["hbm_bytes_global"],
                 argument_bytes=rec["argument_bytes"],
                 output_bytes=rec["output_bytes"],
-                flops_over_analytic=rec["flops"] / analytic.flops_global))
+                flops_over_analytic=rec["flops_global"]
+                / analytic.flops_global,
+                repro=DRYRUN_REPRO_REDUCED[rec["mesh"]]
+                if r["cut"] == "reduced" else None))
     rows = full_table(multi_pod=False)
     table = markdown_table(rows)
     print(table, flush=True)
     record("dryrun", pairs=pairs, runs_wall_s={
-        f"{r['arch']} x {r['shape']}": r["wall_s"] for r in runs},
+        f"{r['arch']} x {r['shape']} ({r['cut'] or 'whole'})": r["wall_s"]
+        for r in runs},
         vs_card=vs_card, roofline=[
         {k: r[k] for k in ("arch", "shape", "t_compute_s", "t_memory_s",
                            "t_collective_s", "dominant", "useful_ratio")}

@@ -17,10 +17,13 @@
 //
 // Three bodies; the Python wrapper picks one (flash_attention.py::body) and
 // calls its entry, which refuses any shape it does not take:
-//  * wgmma (flash_attention_fwd_wgmma; bf16 / f16, hd == vd in {64, 128},
-//    every stride a multiple of 16 bytes and every base 16-byte aligned):
+//  * wgmma (flash_attention_fwd_wgmma; bf16 / f16, hd == vd in {64, 128}
+//    or MLA's q/k 96 with v 64, every stride a multiple of 16 bytes and
+//    every base 16-byte aligned):
 //    one persistent block per SM takes (128-row query tile, h, b) tiles
-//    longest first from a global counter; a producer warpgroup and two
+//    from a global counter, head by head and each head's longest first (so
+//    the blocks at work share a few heads' K/V in L2); a producer
+//    warpgroup and two
 //    consumer warpgroups of 64 rows. The producer's one thread loads each
 //    tile's Q by TMA and keeps a ring of K/V stages in flight (128-key
 //    tiles, 128-byte swizzle, an mbarrier full/empty pair per stage),
@@ -39,8 +42,8 @@
 //  * mma.sync (flash_attention_fwd, 16-bit; hd % 16 == 0, an even vd <= 128):
 //    one block of 4 warps per (64-row query tile, h, b) on
 //    mma.sync.m16n8k16 with float32 accumulation, 16 query rows per warp,
-//    16-byte cp.async tile loads; every other 16-bit shape (hd 32 or 96,
-//    vd != hd, strides or bases off 16 bytes).
+//    16-byte cp.async tile loads; every other 16-bit shape (hd 32,
+//    hd == vd == 96, other vd != hd, strides or bases off 16 bytes).
 //  * float32 (flash_attention_fwd, float32): 256 threads of float32 FMAs,
 //    each owning a 4 x 4 block of the score tile and the same 4 output
 //    rows; any hd, vd <= 256.
@@ -562,8 +565,9 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / f16 with hd == vd in {64, 128}: wgmma fed by a TMA ring,
-// warp-specialised (a producer warpgroup, two consumer warpgroups)
+// bf16 / f16 with hd == vd in {64, 128} or (hd, vd) = (96, 64): wgmma fed
+// by a TMA ring, warp-specialised (a producer warpgroup, two consumer
+// warpgroups)
 // ---------------------------------------------------------------------------
 
 constexpr int WG_BQ = 128;       // query rows per block: two consumers of 64
@@ -890,8 +894,9 @@ struct Rows {
 // S = Q K^T (64 x WG_BK, float32) for this consumer's 64 rows of the Q
 // tile at `qa` and the K tile at `kb`: HD / 16 steps of 16 along the head
 // dimension, 32 bytes into a 128-byte swizzled row per step, a new 64-column
-// slab every 4; the first step overwrites sc. Started and committed; the
-// caller waits.
+// slab every 4 (at HD 96 the second slab's columns 96-127, zero-filled by
+// TMA, are never read); the first step overwrites sc. Started and
+// committed; the caller waits.
 template <typename T, int HD>
 __device__ __forceinline__ void qk_start(float (&sc)[WG_BK / 2], uint32_t qa,
                                          uint32_t kb) {
@@ -1010,8 +1015,8 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[WG_BK / 16][4],
 // contiguous (the N-major B operand): 8-key groups 1024 bytes apart,
 // 64-column slabs WG_BK * 128 bytes apart, 16 keys (2048 bytes) per step.
 // Started and committed; the caller waits.
-template <typename T, int HD>
-__device__ __forceinline__ void pv_start(float (&acc)[HD / 2],
+template <typename T, int VD>
+__device__ __forceinline__ void pv_start(float (&acc)[VD / 2],
                                          uint32_t (&pa)[WG_BK / 16][4],
                                          uint32_t vb) {
   fence_regs(acc);
@@ -1019,7 +1024,7 @@ __device__ __forceinline__ void pv_start(float (&acc)[HD / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < WG_BK / 16; ++kk)
-    wgmma_rs<T, HD>(acc, pa[kk], sw128_desc(vb + kk * 2048, WG_BK * 128, 1024));
+    wgmma_rs<T, VD>(acc, pa[kk], sw128_desc(vb + kk * 2048, WG_BK * 128, 1024));
   wgmma_commit();
 }
 // one arrival per consumer warp on a stage's empty barrier
@@ -1028,9 +1033,14 @@ __device__ __forceinline__ void release_stage(uint32_t bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
-// A (128-row query tile, h, b) of the grid, numbered last (most keys) first
-// over all (h, b): its rows q0 .. q0 + 127 and its 128-key steps from
-// kv_begin (the window's first key, or 0) to the causal diagonal (or T).
+// A (128-row query tile, h, b) of the grid, numbered head by head ((b, h)
+// in order; GQA's heads of one K/V head are neighbours) and within a head
+// last (most keys) first: its rows q0 .. q0 + 127 and its 128-key steps
+// from kv_begin (the window's first key, or 0) to the causal diagonal (or
+// T). The blocks at work hold the tiles of a few heads, whose K/V stay in
+// L2 while they are read again: numbered query tile first over all heads,
+// MLA's 160 heads of K/V (105 MB at 4 x 2048) were read from HBM for each
+// of their 16 query tiles, and its body ran at 0.36 ms instead of 0.29.
 struct Tile {
   int q0, h, b, kv_begin, n_steps;
 };
@@ -1039,8 +1049,8 @@ __device__ __forceinline__ Tile tile_of(int w, int B, int H, int S, int Tk,
                                         int causal, int window) {
   Tile x;
   const int n_q = (S + WG_BQ - 1) / WG_BQ;
-  const int bh = w % (B * H);
-  x.q0 = (n_q - 1 - w / (B * H)) * WG_BQ;
+  const int bh = w / n_q;
+  x.q0 = (n_q - 1 - w % n_q) * WG_BQ;
   x.h = bh % H;
   x.b = bh / H;
   int kv_end = Tk;
@@ -1056,31 +1066,37 @@ __device__ __forceinline__ Tile tile_of(int w, int B, int H, int S, int Tk,
 
 // Persistent: one block per SM. Warpgroup 0's first thread takes the tiles
 // one after another (its block's index first, then the next from the
-// global counter `next`, so the tiles go out longest first to whichever
-// block is free), writes each tile's index to shared memory, loads its Q
-// (HD / 64 swizzled 64-column slabs) by TMA, and keeps the K and V tiles of
-// its 128-key steps in a ring of STAGES stages, running on into the next
-// tile while the consumers finish this one. Consumer c (warpgroups 1, 2)
+// global counter `next`, in `tile_of`'s order, to whichever block is
+// free), writes each tile's index to shared memory, loads its Q
+// (ceil(HD / 64) swizzled 64-column slabs) by TMA, and keeps the K tiles
+// (as many slabs as Q) and V tiles (VD / 64 slabs) of its 128-key steps in
+// a ring of STAGES stages, running on into the next tile while the
+// consumers finish this one. HD is the q/k width, VD the v width: (64, 64),
+// (128, 128), or MLA's (96, 64), whose second Q/K slab is half zeros that
+// TMA fills past the tensor's 96 columns (no device-memory read) and whose
+// output accumulator is 32 floats a thread. Consumer c (warpgroups 1, 2)
 // owns query rows 64c .. 64c + 63 of every tile. Accumulator fragment of
 // wgmma (per warp w of a warpgroup, lane = 4 g + t): element 4 j + e is
 // row 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2). Which block takes
 // a tile changes nothing in its arithmetic: two launches are bitwise equal.
-template <typename T, int HD, int STAGES>
+template <typename T, int HD, int VD, int STAGES>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
                    int* __restrict__ next, int B, int H, int KV, int S,
                    int Tk, float scale_log2, int causal, int window) {
-  constexpr int SLABS = HD / 64;
-  constexpr uint32_t Q_BYTES = WG_BQ * HD * 2;
-  constexpr uint32_t KV_BYTES = WG_BK * HD * 2;  // one K or V stage
+  constexpr int SLABS = (HD + 63) / 64;  // of Q and K
+  constexpr int V_SLABS = VD / 64;
+  constexpr uint32_t Q_BYTES = WG_BQ * 128 * SLABS;
+  constexpr uint32_t K_BYTES = WG_BK * 128 * SLABS;    // one K stage
+  constexpr uint32_t V_BYTES = WG_BK * 128 * V_SLABS;  // one V stage
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   __shared__ int tile_id;                         // the tile in Q, or -1
   const uint32_t sQ = (smem_u32(smem_wg) + 1023u) & ~1023u;  // swizzle atom
   const uint32_t sK = sQ + Q_BYTES;
-  const uint32_t sV = sK + STAGES * KV_BYTES;
-  const uint32_t bar_qfull = sV + STAGES * KV_BYTES;
+  const uint32_t sV = sK + STAGES * K_BYTES;
+  const uint32_t bar_qfull = sV + STAGES * V_BYTES;
   const uint32_t bar_qempty = bar_qfull + 8;
   const uint32_t bar_full = bar_qempty + 8;            // [STAGES]
   const uint32_t bar_empty = bar_full + 8 * STAGES;    // [STAGES]
@@ -1121,14 +1137,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           if (it >= STAGES)
             mbar_wait(bar_empty + 8 * st, (it / STAGES - 1) & 1);
           const uint32_t full = bar_full + 8 * st;
-          mbar_expect_tx(full, 2 * KV_BYTES);
+          mbar_expect_tx(full, K_BYTES + V_BYTES);
           const int k0 = x.kv_begin + i * WG_BK;
-          for (int s = 0; s < SLABS; ++s) {
-            tma_load_4d(sK + st * KV_BYTES + s * (WG_BK * 128), &tk, full,
+          for (int s = 0; s < SLABS; ++s)
+            tma_load_4d(sK + st * K_BYTES + s * (WG_BK * 128), &tk, full,
                         64 * s, k0, kvh, x.b);
-            tma_load_4d(sV + st * KV_BYTES + s * (WG_BK * 128), &tv, full,
+          for (int s = 0; s < V_SLABS; ++s)
+            tma_load_4d(sV + st * V_BYTES + s * (WG_BK * 128), &tv, full,
                         64 * s, k0, kvh, x.b);
-          }
         }
       }
     }
@@ -1160,9 +1176,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int r0 = x.q0 + 64 * c;            // this consumer's first row
       const int row0 = r0 + 16 * warp + g;     // this lane's rows: +0, +8
       const Rows rows{r0, row0, t, Tk, causal, window, scale_log2};
-      float acc[HD / 2];
+      float acc[VD / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < VD / 2; ++i) acc[i] = 0.f;
       float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
       float sc[WG_BK / 2];         // S of this step, then its P in float32
       uint32_t pa[WG_BK / 16][4];  // P of the previous step, A fragments
@@ -1170,7 +1186,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (x.n_steps > 0) {
         mbar_wait(bar_full + 8 * (it % STAGES), (it / STAGES) & 1);
         named_sync(1 + c);
-        qk_start<T, HD>(sc, qa, sK + (it % STAGES) * KV_BYTES);
+        qk_start<T, HD>(sc, qa, sK + (it % STAGES) * K_BYTES);
         named_arrive(2 - c);
         wgmma_wait<0>();
         fence_regs(sc);
@@ -1181,9 +1197,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const int prev = (it + i - 1) % STAGES;
           mbar_wait(bar_full + 8 * st, ((it + i) / STAGES) & 1);
           named_sync(1 + c);
-          qk_start<T, HD>(sc, qa, sK + st * KV_BYTES);
+          qk_start<T, HD>(sc, qa, sK + st * K_BYTES);
           rescale(acc, alpha);
-          pv_start<T, HD>(acc, pa, sV + prev * KV_BYTES);
+          pv_start<T, VD>(acc, pa, sV + prev * V_BYTES);
           named_arrive(2 - c);
           wgmma_wait<1>();
           fence_regs(sc);
@@ -1200,7 +1216,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (x.n_steps > 0) {
         const int last = (it + x.n_steps - 1) % STAGES;
         rescale(acc, alpha);
-        pv_start<T, HD>(acc, pa, sV + last * KV_BYTES);
+        pv_start<T, VD>(acc, pa, sV + last * V_BYTES);
         wgmma_wait<0>();
         fence_regs(acc);
         fence_regs(pa);
@@ -1208,15 +1224,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         it += x.n_steps;
       }
 
-      T* ob = o + (static_cast<long long>(x.b) * H + x.h) * S * HD;
+      T* ob = o + (static_cast<long long>(x.b) * H + x.h) * S * VD;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int s = row0 + 8 * r;
         if (s >= S) continue;
         const float lc = fmaxf(l[r], 1e-30f);
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n)
-          *reinterpret_cast<uint32_t*>(&ob[static_cast<long long>(s) * HD +
+        for (int n = 0; n < VD / 8; ++n)
+          *reinterpret_cast<uint32_t*>(&ob[static_cast<long long>(s) * VD +
                                            8 * n + 2 * t]) =
               pack_f<T>(acc[4 * n + 2 * r] / lc, acc[4 * n + 2 * r + 1] / lc);
       }
@@ -1286,14 +1302,16 @@ int sm_count() {
   return n;
 }
 
-template <typename T, int HD, int STAGES>
+template <typename T, int HD, int VD, int STAGES>
 int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                  const CUtensorMap& tv, void* o, int* next, int B, int H,
                  int KV, int S, int Tk, float scale, int causal, int window,
                  cudaStream_t stream) {
-  constexpr int smem = 1024 + WG_BQ * HD * 2 + 2 * STAGES * WG_BK * HD * 2 +
-                       16 + 16 * STAGES;
-  auto kern = flash_wgmma_kernel<T, HD, STAGES>;
+  constexpr int slabs = (HD + 63) / 64;
+  constexpr int smem = 1024 + WG_BQ * 128 * slabs +
+                       STAGES * WG_BK * 128 * (slabs + VD / 64) + 16 +
+                       16 * STAGES;
+  auto kern = flash_wgmma_kernel<T, HD, VD, STAGES>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1312,18 +1330,21 @@ int launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
 template <typename T>
 int dispatch_wgmma(CUtensorMapDataType type, const void* q, const void* k,
                    const void* v, void* o, int* next, int B, int H, int KV,
-                   int S, int Tk, int hd, const long long* st, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   int S, int Tk, int hd, int vd, const long long* st,
+                   float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, type, q, B, H, S, hd, st[0], st[1], st[2], WG_BQ) ||
       !encode_map(&tk, type, k, B, KV, Tk, hd, st[3], st[4], st[5], WG_BK) ||
-      !encode_map(&tv, type, v, B, KV, Tk, hd, st[6], st[7], st[8], WG_BK))
+      !encode_map(&tv, type, v, B, KV, Tk, vd, st[6], st[7], st[8], WG_BK))
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return launch_wgmma<T, 64, 3>(tq, tk, tv, o, next, B, H, KV, S, Tk,
-                                  scale, causal, window, stream);
-  return launch_wgmma<T, 128, 3>(tq, tk, tv, o, next, B, H, KV, S, Tk, scale,
-                                 causal, window, stream);
+    return launch_wgmma<T, 64, 64, 3>(tq, tk, tv, o, next, B, H, KV, S, Tk,
+                                      scale, causal, window, stream);
+  if (hd == 96)
+    return launch_wgmma<T, 96, 64, 3>(tq, tk, tv, o, next, B, H, KV, S, Tk,
+                                      scale, causal, window, stream);
+  return launch_wgmma<T, 128, 128, 3>(tq, tk, tv, o, next, B, H, KV, S, Tk,
+                                      scale, causal, window, stream);
 }
 
 
@@ -1360,7 +1381,8 @@ int flash_attention_fwd(int dtype, const void* q, const void* k,
   }
 }
 
-// The wgmma body: dtype 1 bfloat16, 2 float16; hd == vd in {64, 128};
+// The wgmma body: dtype 1 bfloat16, 2 float16; (hd, vd) in {(64, 64),
+// (128, 128), (96, 64)};
 // every stride a positive multiple of 8 elements and every base 16-byte
 // aligned (what TMA reads). Anything else is refused
 // (cudaErrorInvalidValue), never handed to another body. next: one int32
@@ -1376,7 +1398,8 @@ int flash_attention_fwd_wgmma(int dtype, const void* q, const void* k,
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   bool ok = next != nullptr && B > 0 && H > 0 && KV > 0 && H % KV == 0 &&
             S > 0 && T > 0 &&
-            hd == vd && (hd == 64 || hd == 128) &&
+            ((hd == vd && (hd == 64 || hd == 128)) ||
+             (hd == 96 && vd == 64)) &&
             (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
              reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   for (int i = 0; i < 9; ++i) ok = ok && st[i] > 0 && st[i] % 8 == 0;
@@ -1386,12 +1409,12 @@ int flash_attention_fwd_wgmma(int dtype, const void* q, const void* k,
     case 1:
       return dispatch_wgmma<__nv_bfloat16>(
           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, o,
-          static_cast<int*>(next), B, H, KV, S, T, hd, st, scale, causal,
+          static_cast<int*>(next), B, H, KV, S, T, hd, vd, st, scale, causal,
           window, s);
     case 2:
       return dispatch_wgmma<__half>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v,
                                     o, static_cast<int*>(next), B, H, KV, S,
-                                    T, hd, st, scale, causal, window, s);
+                                    T, hd, vd, st, scale, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

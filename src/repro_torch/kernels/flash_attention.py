@@ -35,22 +35,24 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 BODIES = ("wgmma", "mma", "simt")
-WGMMA_HEAD_DIMS = (64, 128)
+# (q/k width, v width) of the wgmma body: the GQA heads and MLA's
+# qk_nope + qk_rope = 96 with v 64
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
 
 
 def body(q: Tensor, k: Tensor, v: Tensor) -> str:
     """The CUDA body that takes these inputs: "wgmma" (TMA and wgmma:
-    16-bit, hd == vd in WGMMA_HEAD_DIMS, every batch/head/row stride a
+    16-bit, (hd, vd) in WGMMA_HEAD_DIMS, every batch/head/row stride a
     positive multiple of 16 bytes, every base 16-byte aligned), "mma"
     (mma.sync: every other 16-bit shape) or "simt" (float32). Reads only
     dtypes, shapes, strides and data pointers, so CPU tensors answer too."""
     if q.dtype == torch.float32:
         return "simt"
-    hd, vd = q.shape[-1], v.shape[-1]
     tma = all(t.data_ptr() % 16 == 0
               and all(st > 0 and st * t.element_size() % 16 == 0
                       for st in t.stride()[:3]) for t in (q, k, v))
-    return "wgmma" if hd == vd and hd in WGMMA_HEAD_DIMS and tma else "mma"
+    dims = (q.shape[-1], v.shape[-1])
+    return "wgmma" if dims in WGMMA_HEAD_DIMS and tma else "mma"
 
 
 def _mask(S: int, T: int, causal: bool, window: Optional[int],

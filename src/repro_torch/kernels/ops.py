@@ -27,6 +27,7 @@ which `torch.utils.flop_counter.FlopCounterMode` reads on any device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -170,6 +171,51 @@ def _(r, k, v, logw, u, chunk, *args, **kwargs):
 def _(dt, A, Bt, Ct, x, *args, **kwargs):
     B, T, D = x
     return mamba_scan_flops(B, T, D, A[1])
+
+
+# ---------------------------------------------------------------------------
+# DTensor sharding rules (the dry run's partitioned pass, `launch/dryrun.py`)
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def register_sharding_rules() -> None:
+    """Gives the three ops a DTensor sharding rule (once a process; the
+    dry run calls it before its partitioned pass). Per mesh dimension each
+    op runs replicated, split over the batch, or split over its heads (the
+    Mamba scan: its inner channels), inputs and outputs alike, as the
+    reference's `shard` sites lay out q / k / v ("batch", "seq", "heads",
+    "head_dim") and the Mamba scan ("batch", "seq", "inner"); the per-head
+    (per-channel) parameters u and A follow their heads (channels). An
+    input placed otherwise (the sequence or head width split, a partial
+    sum) is redistributed by DTensor to the cheapest of these, so no
+    placement fails the pass. Splitting heads is exact only where q's and
+    k's heads split alike: the models repeat K/V to q's heads under
+    active rules (`models.attention._flash`), as the reference's
+    `_chunked_attn` does."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R = Replicate()
+
+    @register_sharding(flash_attention_op)
+    def _(q, k, v, causal, window, scale):
+        rest = [None, None, None]
+        return [([R], [R, R, R] + rest),
+                ([Shard(0)], [Shard(0)] * 3 + rest),
+                ([Shard(1)], [Shard(1)] * 3 + rest)]
+
+    @register_sharding(rwkv6_scan_op)
+    def _(r, k, v, logw, u, chunk):
+        return [([R, R], [R] * 5 + [None]),
+                ([Shard(0), Shard(0)], [Shard(0)] * 4 + [R, None]),
+                ([Shard(2), Shard(1)], [Shard(2)] * 4 + [Shard(0), None])]
+
+    @register_sharding(mamba_scan_op)
+    def _(dt, A, Bt, Ct, x):
+        return [([R, R], [R] * 5),
+                ([Shard(0), Shard(0)], [Shard(0), R, Shard(0), Shard(0),
+                                        Shard(0)]),
+                ([Shard(2), Shard(1)], [Shard(2), Shard(0), R, R, Shard(2)])]
 
 
 def _recomputed_grads(name: str, formulation: Optional[Callable],

@@ -26,7 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
-from ..sharding.partition import shard
+from ..sharding.partition import is_partitioned, shard, whole_heads
 from .layers import apply_rope, normal
 
 Tensor = torch.Tensor
@@ -203,14 +203,19 @@ def _fill_cache(cache: Union[KVCache, QuantKVCache], k: Tensor, v: Tensor
 # ---------------------------------------------------------------------------
 
 def _project(x: Tensor, w: Tensor) -> Tensor:
-    """einsum("bsd,dhk->bshk") as one matrix product."""
+    """einsum("bsd,dhk->bshk") as one matrix product (in a partitioned
+    pass, the weight's head width gathered first where it is split:
+    `whole_heads`)."""
     D, H, K = w.shape
+    w = whole_heads(w, 2)
     return torch.matmul(x, w.reshape(D, H * K)).unflatten(-1, (H, K))
 
 
 def _out(o: Tensor, wo: Tensor) -> Tensor:
-    """einsum("bshk,hkd->bsd") as one matrix product."""
+    """einsum("bshk,hkd->bsd") as one matrix product (the weight as in
+    `_project`)."""
     H, K, D = wo.shape
+    wo = whole_heads(wo, 1)
     return torch.matmul(o.reshape(*o.shape[:2], H * K), wo.reshape(H * K, D))
 
 
@@ -283,7 +288,14 @@ def _chunked_attn_heads_first(q: Tensor, k: Tensor, v: Tensor, *,
 def _flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
            window: Optional[int], scale: float) -> Tensor:
     """The flash kernel on the model's layout: q (B,S,H,hd), k/v
-    (B,T,KV,*) -> (B,S,H,vd), differentiable through `_chunked_attn`."""
+    (B,T,KV,*) -> (B,S,H,vd), differentiable through `_chunked_attn`. In a
+    partitioned pass K/V are first repeated to q's heads and laid out like
+    them, as the reference's `_chunked_attn` does, so that the op's heads
+    split alike (`kernels.ops.register_sharding_rules`)."""
+    if k.shape[2] != q.shape[2] and is_partitioned(q):
+        G = q.shape[2] // k.shape[2]
+        k, v = (shard(t.repeat_interleave(G, dim=2), "batch", "seq", "heads",
+                      "head_dim") for t in (k, v))
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
                                window=window if causal else None,

@@ -81,7 +81,7 @@ def apply_moe(p: MoE, x: Tensor, top_k: int,
 
     # the token of each slot (cap + 1 columns: the last takes the drops)
     s_ix = torch.arange(S, device=x.device)[None, :, None].expand(B, S, E)
-    sidx = torch.zeros((B, E, cap + 1), dtype=torch.long, device=x.device)
+    sidx = slot.new_zeros((B, E, cap + 1), dtype=torch.long)
     sidx.scatter_(2, slot.transpose(1, 2), s_ix.transpose(1, 2))
     sidx = sidx[..., :cap]                               # (B, E, C)
     filled = torch.arange(cap, device=x.device) \

@@ -187,15 +187,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # forward
 # ---------------------------------------------------------------------------
 
+def _gathered(x: Tensor) -> Tensor:
+    """`x` (B, S, D) with no split of its sequence or width: outside a
+    partitioned pass, `x` itself. Around each block the reference's GSPMD
+    gathers the residual stream's sequence split ("seq_outer") into the
+    block and reduces the block's partial sums back out of it; DTensor
+    inserts nothing, so the models constrain a block's normed input and
+    its output (and the LM head's input) here. Without it a matrix
+    product flattens a sequence split over one mesh axis with a batch
+    split over another (a strided layout), forward or backward, whose
+    redistributions DTensor plans by a slow search over layouts, and the
+    ops around it split less evenly than the batch."""
+    return shard(x, "batch", "seq", "embed_act")
+
+
+def _branch_input(x: Tensor, scale: Tensor, eps: float) -> Tensor:
+    """A block's (or the LM head's) normed input, `_gathered`."""
+    return _gathered(rms_norm(x, scale, eps))
+
+
 def _ffn(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor
          ) -> Tuple[Tensor, Optional[Tensor]]:
     """x plus the MLP, or the MoE for `*_moe` kinds, of its norm. Returns
     (x, the MoE aux loss or None)."""
-    h = rms_norm(x, p.norm2.scale, cfg.norm_eps)
+    h = _branch_input(x, p.norm2.scale, cfg.norm_eps)
     if kind.endswith("_moe"):
         o, aux = moe_lib.apply_moe(p.moe, h, cfg.top_k, cfg.capacity_factor)
-        return x + o, aux
-    return x + apply_mlp(p.mlp, h), None
+        return x + _gathered(o), aux
+    return x + _gathered(apply_mlp(p.mlp, h)), None
 
 
 def _sublayer(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor, *,
@@ -206,7 +225,7 @@ def _sublayer(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor, *,
         cross_c = None
         if kind == "attn_cross" and isinstance(cache, dict):
             cross_c, cache = cache["cross"], cache["self"]
-        h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
+        h = _branch_input(x, p.norm1.scale, cfg.norm_eps)
         if _is_mla(kind, cfg):
             o, new_c = attn_lib.mla_attention(
                 p.attn, h, qk_nope_dim=cfg.qk_nope_dim,
@@ -219,9 +238,9 @@ def _sublayer(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor, *,
                 p.attn, h, mode=mode, cache=cache, pos=pos,
                 window=None if enc else cfg.sliding_window, causal=not enc,
                 rope_theta=cfg.rope_theta, use_rope=not enc)
-        x = x + o
+        x = x + _gathered(o)
         if kind == "attn_cross":
-            h = rms_norm(x, p.norm3.scale, cfg.norm_eps)
+            h = _branch_input(x, p.norm3.scale, cfg.norm_eps)
             if cross_c is not None:
                 o, _ = attn_lib.attention(p.xattn, h, mode="train",
                                           cross_kv=cross_c, causal=False)
@@ -233,32 +252,32 @@ def _sublayer(kind: str, p: Sublayer, cfg: ModelConfig, x: Tensor, *,
                     "attn_cross: no encoder output; pass frame_embeds or "
                     "enc_out, or decode against a cache filled by "
                     "prepare_cross_cache")
-            x = x + o
+            x = x + _gathered(o)
         x, aux = _ffn(kind, p, cfg, x)
         if cross_c is not None:
             return x, {"self": new_c, "cross": cross_c}, aux
         return x, new_c, aux
 
     if kind in ("mamba", "mamba_moe"):
-        h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
+        h = _branch_input(x, p.norm1.scale, cfg.norm_eps)
         o, new_c = ssm_lib.mamba(p.mamba, h, mode=mode, cache=cache,
                                  chunk=cfg.ssm_chunk)
-        x, aux = _ffn(kind, p, cfg, x + o)
+        x, aux = _ffn(kind, p, cfg, x + _gathered(o))
         return x, new_c, aux
 
     if kind == "rwkv":
-        h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
+        h = _branch_input(x, p.norm1.scale, cfg.norm_eps)
         o, state, x_tm = ssm_lib.rwkv_time_mix(
             p.rwkv.part("tm_"), h, n_heads=cfg.n_heads,
             head_dim=cfg.head_dim, mode=mode, cache=cache,
             chunk=cfg.rwkv_chunk)
-        x = x + o
-        h = rms_norm(x, p.norm2.scale, cfg.norm_eps)
+        x = x + _gathered(o)
+        h = _branch_input(x, p.norm2.scale, cfg.norm_eps)
         o, x_cm = ssm_lib.rwkv_channel_mix(
             p.rwkv.part("cm_"), h, mode=mode,
             x_prev=cache.x_cm if (mode == "decode" and cache is not None)
             else None)
-        x = x + o
+        x = x + _gathered(o)
         new_c = ssm_lib.RWKVCache(state=state,
                                   x_tm=x_tm.to(torch.bfloat16),
                                   x_cm=x_cm.to(torch.bfloat16))
@@ -374,7 +393,7 @@ def model_forward(model: Model, cfg: ModelConfig, batch: Dict[str, Tensor],
                                  else None, pos=pos, enc_out=enc_out)
         if new_cache is not None:
             new_cache.append(new_cs)
-    x = rms_norm(x, model.final_norm.scale, cfg.norm_eps)
+    x = _branch_input(x, model.final_norm.scale, cfg.norm_eps)
     logits = lm_logits(model.embed, model.lm_head, x)
     return logits, aux, new_cache
 

@@ -303,9 +303,9 @@ def roofline_terms(arch: str, shape_name: str, multi_pod: bool = False,
         tokens=c.tokens,
     )
     if compiler_record:
-        # the abstract pass's record (launch/dryrun.py): collectives,
-        # temp_bytes and compile_s are None there (no SPMD partitioner, no
-        # compiler)
+        # the dry run's record (launch/dryrun.py): flops, hbm_bytes and the
+        # collectives' bytes per device, from its partitioned pass, as the
+        # reference's; compile_s is None there (no compiler)
         coll = compiler_record.get("collectives") or {}
         out["compiler"] = dict(
             flops=compiler_record.get("flops"),

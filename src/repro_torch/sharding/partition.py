@@ -183,6 +183,37 @@ def spec_placements(spec: Spec, mesh_dim_names: Sequence[str]) -> tuple:
                  for n in mesh_dim_names)
 
 
+def is_partitioned(x) -> bool:
+    """True when rules are active and `x` is a DTensor: a partitioned pass
+    (the dry run's), where the models lay some tensors out for it."""
+    if active_rules() is None:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def whole_heads(w, dim: int):
+    """`w` unchanged, unless it is the DTensor of a partitioned pass whose
+    dimension `dim` (a head's width) is split: then gathered there. The
+    shape-aware specs move a mesh axis onto the head width where it could
+    not split the heads (8 KV heads on 16 devices); a product over the
+    heads merged with their widths would then hold a split inside a head,
+    which a DTensor view back to (heads, width), a forward's or its
+    gradient's, cannot express (the dry run reruns it gathered), and
+    whose strided layout DTensor plans redistributions for by a slow
+    search; gathering the weight instead keeps the activations split over
+    the batch and the other heads."""
+    if not is_partitioned(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                 for p in w.placements)
+    return w if want == tuple(w.placements) else \
+        w.redistribute(w.device_mesh, want)
+
+
 def shard(x, *axes: Optional[str]):
     """Constrain an activation's sharding by logical axes: `x` unchanged
     unless rules are active and `x` is a DTensor, which is then

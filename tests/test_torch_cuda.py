@@ -527,12 +527,59 @@ def test_flash_wgmma_body_matches_plain_version(cuda, dtype, model_layout, B,
             window=window))
 
 
+# MLA's shapes on the wgmma body (q/k 96, v 64): causal and not, ragged
+# S and T, a 128-key window, GQA 2:1 and a single query row.
+# (B, H, KV, S, T, causal, window)
+MLA_WGMMA_CASES = [
+    (1, 2, 2, 128, 128, True, None),
+    (2, 4, 4, 200, 200, True, None),
+    (1, 3, 3, 256, 256, False, None),
+    (1, 3, 1, 70, 130, False, None),
+    (2, 4, 2, 130, 70, False, None),
+    (1, 4, 4, 300, 300, True, 128),
+    (2, 4, 2, 256, 256, True, None),
+    (1, 2, 1, 1, 77, False, None),
+]
+
+
+def mla_model_layout(q, k, v):
+    """q, k as (B, S, heads, 96) tensors transposed, v the last 64 columns
+    of the decompressed (k_nope | v) rows of 128, transposed: MLA's hand-over
+    to the kernel."""
+    q, k = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k))
+    kv = torch.cat([torch.zeros_like(v), v], -1)
+    return q, k, kv.transpose(1, 2).contiguous().transpose(1, 2)[..., 64:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("B, H, KV, S, T, causal, window", MLA_WGMMA_CASES)
+def test_flash_mla_wgmma_body_matches_plain_version(cuda, dtype, model_layout,
+                                                    B, H, KV, S, T, causal,
+                                                    window):
+    q, k, v = flash_inputs(cuda, dtype, B, H, KV, S, T, 96, 64)
+    if model_layout:
+        q, k, v = mla_model_layout(q, k, v)
+        assert v.stride(2) == 128 * KV and v.data_ptr() % 128 == 0
+    out = check_flash(q, k, v, causal, window, "wgmma")
+    if model_layout:
+        from repro_torch.kernels import flash_attention as fa
+
+        assert torch.equal(out, fa.flash_attention(
+            *(x.contiguous() for x in (q, k, v)), causal=causal,
+            window=window))
+
+
 @pytest.mark.cuda
 def test_flash_other_16_bit_shapes_take_mma_sync(cuda):
-    """hd 96 / vd 64 (MLA), hd == vd off {64, 128}, and a 16-byte-aligned
-    shape read through rows of 136 elements with the base 2 bytes in."""
+    """hd 96 / vd 64 (MLA) read 2 bytes off 16, hd == vd off {64, 128},
+    and a 16-byte-aligned shape read through rows of 136 elements with the
+    base 2 bytes in."""
     q, k, v = flash_inputs(cuda, torch.bfloat16, 1, 3, 1, 70, 130, 96, 64)
-    check_flash(q, k, v, False, None, "mma")
+    vp = torch.zeros((1, 1, 130, 72), dtype=v.dtype, device=cuda)
+    vp[..., 1:65] = v
+    check_flash(q, k, vp[..., 1:65], False, None, "mma")
     q, k, v = flash_inputs(cuda, torch.bfloat16, 2, 4, 2, 77, 77, 32)
     check_flash(q, k, v, True, None, "mma")
     q, k, v = flash_inputs(cuda, torch.bfloat16, 1, 4, 2, 96, 96, 128)
@@ -586,12 +633,12 @@ def test_flash_attention_takes_strided_views(cuda):
 
 # the attentions of the serving options at reduced sizes, as the model
 # hands them over ((B, S, heads, hd) transposed): MLA's hd 96 / vd 64 (v a
-# column slice of the decompressed K/V) on mma.sync, the encoder's and the
+# column slice of the decompressed K/V), the encoder's and the
 # cross-attention's non-causal T of 300 (not a multiple of the 128-key
 # tile), a decode step's cross-attention (S = 1) and llava's causal GQA 7:1
-# over a ragged S on wgmma. (B, H, KV, S, T, hd, vd, causal, body)
+# over a ragged S, all on wgmma. (B, H, KV, S, T, hd, vd, causal, body)
 SERVED_OPTION_CASES = {
-    "mla": (2, 4, 4, 200, 200, 96, 64, True, "mma"),
+    "mla": (2, 4, 4, 200, 200, 96, 64, True, "wgmma"),
     "encoder": (2, 4, 4, 300, 300, 64, 64, False, "wgmma"),
     "cross": (2, 4, 4, 70, 300, 64, 64, False, "wgmma"),
     "cross-decode": (2, 4, 4, 1, 300, 64, 64, False, "wgmma"),

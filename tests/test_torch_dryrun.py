@@ -1,6 +1,7 @@
 """`repro_torch.launch.dryrun` in subprocesses (its fake process group must
 not live in a pytest worker): the per-device argument bytes of reduced
-pairs against the sum over `repro`'s specs at the same axis sizes, and the
+pairs against the sum over `repro`'s specs at the same axis sizes, the
+per-device counts and collectives of their partitioned passes, and the
 command line's records, skip lines, summary and exit code."""
 import dataclasses
 import json
@@ -113,8 +114,17 @@ def test_reduced_pairs_argument_bytes_match_reference_specs():
                                                                  mp)
         assert rec["flops"] > 0 and rec["hbm_bytes"] > 0
         assert rec["output_bytes"] > 0 and rec["lower_s"] > 0
-        for key in ("compile_s", "temp_bytes", "peak_bytes", "collectives"):
-            assert rec[key] is None
+        # per device: at most the unsharded step's, at least its share
+        assert rec["flops_global"] / rec["n_devices"] <= rec["flops"] \
+            < rec["flops_global"]
+        assert 0 < rec["hbm_bytes"] < rec["hbm_bytes_global"]
+        assert rec["compile_s"] is None
+        assert rec["peak_bytes"] == rec["argument_bytes"] + rec["temp_bytes"]
+        coll = rec["collectives"]
+        kinds = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                 "collective-permute")
+        assert set(coll) == set(kinds) | {"total_bytes"}
+        assert coll["total_bytes"] == sum(coll[k]["bytes"] for k in kinds) > 0
 
 
 def test_command_line_records_skips_and_summary(tmp_path):
@@ -132,7 +142,9 @@ def test_command_line_records_skips_and_summary(tmp_path):
     assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
     # the multi-pod mesh halves the data-sharded leaves' bytes per device
     assert recs[1]["argument_bytes"] < recs[0]["argument_bytes"]
-    assert recs[0]["flops"] == recs[1]["flops"]
+    # and each device's share of the step (batch 128 over 16, then 32)
+    assert recs[1]["flops"] == pytest.approx(recs[0]["flops"] / 2, rel=0.02)
+    assert recs[0]["flops_global"] == recs[1]["flops_global"]
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "whisper-large-v3", "--shape", "long_500k"],

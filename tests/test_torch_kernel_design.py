@@ -4,8 +4,9 @@
   given inputs, on CPU tensors (it reads only dtypes, shapes, strides and
   data pointers; no kernel runs): the wgmma/TMA body for the served
   prefills, contiguous or as the model's (B, S, H, hd).transpose(1, 2)
-  views; mma.sync for the other 16-bit shapes and for views off 16 bytes;
-  the SIMT body for float32.
+  views, MLA's q/k 96 with v 64 included (v a column slice of the
+  decompressed K/V rows); mma.sync for the other 16-bit shapes and for
+  views off 16 bytes; the SIMT body for float32.
 * The two-pass decomposition of `csrc/rwkv6_scan.cu`, rendered in plain
   torch here in float64 (a state pass that keeps the state entering each
   chunk, then an output pass per chunk that builds A from pairwise
@@ -80,7 +81,41 @@ def test_served_prefills_take_the_wgmma_body(arch, model_layout):
     assert fa.body(q.half(), k.half(), v.half()) == "wgmma"
 
 
-@pytest.mark.parametrize("hd, vd", [(32, 32), (96, 96), (96, 64), (128, 64),
+def mla_tensors(B, H, S, dtype=torch.bfloat16, model_layout=False):
+    """MLA's q, k (q/k width 96) and v (width 64), contiguous or as the
+    model hands them over: q and k (B, S, H, 96) `torch.cat` results and v
+    the last 64 columns of the decompressed (k_nope | v) rows of 128, each
+    transposed to (B, H, S, width)."""
+    if not model_layout:
+        return attn_tensors(B, H, H, S, 96, 64, dtype=dtype)
+    kv = torch.zeros((B, S, H, 128), dtype=dtype)
+    return (torch.zeros((B, S, H, 96), dtype=dtype).transpose(1, 2),
+            torch.zeros((B, S, H, 96), dtype=dtype).transpose(1, 2),
+            kv[..., 64:].transpose(1, 2))
+
+
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_mla_takes_the_wgmma_body(model_layout):
+    cfg = get_config("minicpm3-4b")
+    assert (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) == (96, 64)
+    q, k, v = mla_tensors(2, cfg.n_heads, 64, model_layout=model_layout)
+    assert v.is_contiguous() != model_layout
+    assert fa.body(q, k, v) == "wgmma"
+    assert fa.body(q.half(), k.half(), v.half()) == "wgmma"
+
+
+def test_mla_off_16_bytes_takes_mma_sync():
+    # v read 2 bytes into the (k_nope | v) rows, q through rows of 104
+    # elements with the base 2 bytes in
+    q, k, v = mla_tensors(1, 4, 32, model_layout=True)
+    kv = torch.zeros((1, 32, 4, 129), dtype=torch.bfloat16)
+    assert fa.body(q, k, kv[..., 65:].transpose(1, 2)) == "mma"
+    qp = torch.zeros((1, 4, 32, 104), dtype=torch.bfloat16)
+    assert fa.body(qp[..., 1:97], k, v) == "mma"
+    assert fa.body(qp[..., :96], k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("hd, vd", [(32, 32), (96, 96), (128, 64),
                                     (64, 128), (16, 16)])
 def test_other_16_bit_shapes_take_mma_sync(hd, vd):
     q, k, v = attn_tensors(1, 4, 2, 32, hd, vd)
